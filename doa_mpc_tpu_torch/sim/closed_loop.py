@@ -1,0 +1,188 @@
+"""Batched closed-loop RTI simulation (``doa_mpc_tpu/sim/closed_loop.py``).
+
+Per tick, for every scenario of the batch at once:
+
+1. forecast the obstacles (closed-form bounce fold),
+2. linearize and assemble the QPs (``RtiController.build_qp``),
+3. solve all QPs in one call (kernel K1, ``ops/ip_fused.py``),
+4. take the full step and apply u0 to the RK4 plant,
+5. step the obstacles with velocity noise,
+6. update min-margin / out-of-bounds / goal metrics, shift the warm start,
+   and freeze rows that are done (every field of the state, as the
+   reference's ``break`` does).
+
+The reference keeps simulating after a collision; ``hit`` is judged from
+``min_margin <= 0`` afterwards. The status-4 reset analogue
+(``init_guess_when_error``) is off by default and not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from doa_mpc_tpu_torch.config import CostParams
+from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused
+from doa_mpc_tpu_torch.ops.ip_qp import IpSolution
+from doa_mpc_tpu_torch.sim.obstacles import (
+    ObstacleState, generate_obstacles, obstacle_step, predict_trajectory,
+)
+from doa_mpc_tpu_torch.solver.sqp_rti import RtiController, RtiState
+
+BACKENDS = ("fused", "zero")
+
+
+class LoopState(NamedTuple):
+    """Carried per-scenario closed-loop state, batch-first (B, ...). The JAX
+    package's per-row PRNG ``key`` has no counterpart: noise comes from a
+    ``torch.Generator`` or a precomputed stream."""
+
+    x0: torch.Tensor          # (B, nx) plant state
+    rti: RtiState             # warm-started trajectories
+    obst: ObstacleState       # obstacle world
+    done: torch.Tensor        # (B,) bool — goal reached, row frozen
+    reached: torch.Tensor     # (B,) bool
+    oob: torch.Tensor         # (B,) bool — ever left the grid
+    min_margin: torch.Tensor  # (B,) running min margin to any obstacle
+    dist: torch.Tensor        # (B,) last distance to goal
+    steps: torch.Tensor       # (B,) int32
+    resets: torch.Tensor      # (B,) int32 — status-4 analogue firings
+
+
+class LoopMetrics(NamedTuple):
+    """The 6-column result row of the reference's experiments CSV."""
+
+    hit: torch.Tensor
+    reached: torch.Tensor
+    min_margin: torch.Tensor
+    dist: torch.Tensor
+    steps: torch.Tensor
+    oob: torch.Tensor
+
+
+def metrics_of(state: LoopState) -> LoopMetrics:
+    return LoopMetrics(hit=(state.min_margin <= 0.0), reached=state.reached,
+                       min_margin=state.min_margin, dist=state.dist,
+                       steps=state.steps, oob=state.oob)
+
+
+def init_loop_state(ctrl: RtiController, x_init, goal, scenario: str = "RANDOM",
+                    batch_shape=(1,), obst: ObstacleState | None = None,
+                    generator: torch.Generator | None = None) -> LoopState:
+    """Fresh batch of experiments on ``ctrl.device``, ``batch_shape`` = (B,)
+    (one batch axis): obstacles
+    (``obst`` pins them, e.g. the compat_rng worlds; otherwise sampled from
+    ``generator``), cold-started solver, cleared metrics."""
+    (batch,) = batch_shape
+    dev, dtype = ctrl.device, ctrl.dtype
+    kw = dict(dtype=dtype, device=dev)
+    x_init = torch.as_tensor(x_init, **kw).expand(batch, ctrl.spec.nx).clone()
+    goal = torch.as_tensor(goal, **kw)
+    if obst is None:
+        obst = generate_obstacles(generator, ctrl.spec, scenario, (batch,),
+                                  dtype=dtype, device=dev)
+    else:
+        obst = ObstacleState(pos=torch.as_tensor(obst.pos, **kw),
+                             vel=torch.as_tensor(obst.vel, **kw))
+    flags = torch.zeros((batch,), dtype=torch.bool, device=dev)
+    ints = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return LoopState(
+        x0=x_init, rti=ctrl.initial_guess(x_init, goal), obst=obst,
+        done=flags, reached=flags.clone(), oob=flags.clone(),
+        min_margin=torch.full((batch,), float("inf"), **kw),
+        dist=torch.linalg.norm(x_init[:, :2] - goal, dim=-1),
+        steps=ints, resets=ints.clone())
+
+
+def _freeze(done, old, new):
+    """``new`` where the row is still running, ``old`` where it is done."""
+    return torch.where(done.reshape(done.shape + (1,) * (new.ndim - 1)), old, new)
+
+
+def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
+                      backend: str = "fused",
+                      generator: torch.Generator | None = None):
+    """The natively batched control tick.
+
+    Backends: ``'fused'`` solves with kernel K1 (its plain version for CPU
+    tensors); ``'zero'`` skips the solve (a zero step), a profiling aid that
+    leaves only the tick's glue to time. ``generator`` draws the obstacle
+    noise when a tick is called without ``noise``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not ported; choose from {BACKENDS}")
+    spec, opts = ctrl.spec, ctrl.options
+    if opts.init_guess_when_error:
+        raise NotImplementedError(
+            "init_guess_when_error (the status-4 analogue) is not ported yet")
+    n = spec.n_solv
+    goal = torch.as_tensor(goal, dtype=ctrl.dtype, device=ctrl.device)
+
+    def tick(st: LoopState, noise: torch.Tensor | None = None) -> LoopState:
+        """One tick; ``noise`` is an optional (B, M, 2) standard-normal draw
+        (the compat_rng stream)."""
+        pred = predict_trajectory(st.obst, spec, n,
+                                  compat_pred_bug=opts.compat_pred_bug)
+        pred = pred.movedim(0, 1)                              # (B, N+1, M, 2)
+        qp = ctrl.build_qp(st.rti, st.x0, goal, pred, params)
+
+        if backend == "fused":
+            sol = solve_ocp_qp_fused(qp, iters=opts.qp_iter, tau=opts.ip_tau)
+        else:
+            nb = st.x0.shape[0]
+            zeros = torch.zeros((nb,), dtype=st.x0.dtype, device=st.x0.device)
+            sol = IpSolution(dx=torch.zeros_like(st.rti.x_traj),
+                             du=torch.zeros_like(st.rti.u_traj),
+                             s=torch.zeros_like(qp.hval), mu=zeros,
+                             kappa=torch.ones_like(zeros), stat_res=zeros)
+        rti_new = RtiState(x_traj=st.rti.x_traj + sol.dx,
+                           u_traj=st.rti.u_traj + sol.du)
+        u0 = rti_new.u_traj[:, 0]
+
+        x_new = ctrl.integrate(st.x0, u0)
+        obst_new = obstacle_step(st.obst, spec, noise=noise, generator=generator)
+
+        oob = (st.oob | (torch.abs(x_new[:, 0]) > spec.x_max)
+               | (torch.abs(x_new[:, 1]) > spec.y_max))
+        d = x_new[:, None, :2] - obst_new.pos
+        margin = torch.amin(torch.linalg.norm(d, dim=-1)
+                            - (spec.r_obst + spec.r_robot), dim=-1)
+        min_margin = torch.minimum(st.min_margin, margin)
+        dist = torch.linalg.norm(x_new[:, :2] - goal, dim=-1)
+        reached = dist <= spec.tol
+        steps = st.steps + (~reached).to(torch.int32)
+        rti_shifted = ctrl.shift(rti_new)
+
+        new = LoopState(
+            x0=x_new, rti=rti_shifted, obst=obst_new,
+            done=st.done | reached, reached=st.reached | reached,
+            oob=oob, min_margin=min_margin, dist=dist, steps=steps,
+            resets=st.resets)
+        return LoopState(
+            x0=_freeze(st.done, st.x0, new.x0),
+            rti=RtiState(*(_freeze(st.done, o, u) for o, u in zip(st.rti, new.rti))),
+            obst=ObstacleState(*(_freeze(st.done, o, u) for o, u in zip(st.obst, new.obst))),
+            **{f: _freeze(st.done, getattr(st, f), getattr(new, f))
+               for f in LoopState._fields[3:]})
+
+    return tick
+
+
+def make_batched_rollout(ctrl: RtiController, goal, params: CostParams,
+                         max_iter: int = 400, backend: str = "fused",
+                         use_noise_traj: bool = False,
+                         generator: torch.Generator | None = None):
+    """Run the batched tick ``max_iter`` times (a Python loop over ticks).
+
+    With ``use_noise_traj`` the rollout takes a second argument, the
+    ``(max_iter, B, M, 2)`` noise stream, one slice per tick."""
+    tick = make_batched_tick(ctrl, goal, params, backend=backend, generator=generator)
+
+    def rollout(st: LoopState, noise_traj: torch.Tensor | None = None):
+        for i in range(max_iter):
+            st = tick(st, noise=None if noise_traj is None else noise_traj[i])
+        return st
+
+    if use_noise_traj:
+        return rollout
+    return lambda st: rollout(st, None)

@@ -1,0 +1,119 @@
+"""Batched Monte-Carlo experiment harness (``doa_mpc_tpu/sim/experiments.py``).
+
+All seeds of a configuration run as one batched closed-loop rollout on one
+device. The artifacts keep the reference's schema:
+
+- ``<stamp>_experiment_data.csv``: one row per seed, ``;``-delimited, columns
+  (hit, reached_goal, min_margin, final_dist, steps, out_of_bounds);
+- ``<stamp>_experiment_spec.json``: the configuration dictionary, plus
+  provenance keys (``engine``, ``device``, ...).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from datetime import datetime
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from doa_mpc_tpu_torch.config import (
+    CostParams, SolverOptions, WorldSpec, default_cost_params, resolve_device,
+)
+from doa_mpc_tpu_torch.sim.closed_loop import (
+    init_loop_state, make_batched_rollout, metrics_of,
+)
+from doa_mpc_tpu_torch.sim.obstacles import robot_start_goal
+from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+
+
+def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
+                       n_runs: int = 100, max_iter: int = 400,
+                       seed: int = 0, dtype=torch.float32,
+                       params: CostParams | None = None,
+                       mesh=None, backend: str = "fused",
+                       compat_rng: bool = False, device="cuda"):
+    """Run ``n_runs`` seeded scenarios in one batched rollout on ``device``.
+
+    Returns a (n_runs, 6) float64 metrics array in the reference CSV column
+    order. ``compat_rng`` replays the reference's MT19937 worlds and noise
+    (row i uses ``np.random.seed(i)``); otherwise worlds and noise come from
+    a ``torch.Generator`` seeded with ``seed``."""
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP item 12)")
+    dev = resolve_device(device)
+    ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
+    params = params or default_cost_params(spec, dtype=dtype, device=dev)
+    start, goal = robot_start_goal(spec)
+
+    if compat_rng:
+        from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
+        obst, noise = mt_experiment_batch(
+            range(n_runs), spec, scenario, max_iter=max_iter,
+            dtype=np.float64 if dtype == torch.float64 else np.float32)
+        state = init_loop_state(ctrl, start, goal, scenario, batch_shape=(n_runs,),
+                                obst=obst)
+        rollout = make_batched_rollout(ctrl, goal, params, max_iter=max_iter,
+                                       backend=backend, use_noise_traj=True)
+        final = rollout(state, torch.as_tensor(noise, device=dev))
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = init_loop_state(ctrl, start, goal, scenario, batch_shape=(n_runs,),
+                                generator=gen)
+        rollout = make_batched_rollout(ctrl, goal, params, max_iter=max_iter,
+                                       backend=backend, generator=gen)
+        final = rollout(state)
+
+    m = metrics_of(final)
+    return torch.stack([a.to(torch.float64) for a in m], dim=1).cpu().numpy()
+
+
+def run_experiment(spec: WorldSpec | None = None,
+                   opts: SolverOptions | None = None,
+                   scenarios: Sequence[str] = ("RANDOM", "EDGE"),
+                   n_runs: int = 100, max_iter: int = 400,
+                   out_dir: str = "test_data/new",
+                   dtype=torch.float32, backend: str = "fused",
+                   compat_rng: bool = False, device="cuda"):
+    """Per scenario, run the seeded batch and write CSV + spec JSON."""
+    spec = spec or WorldSpec()
+    opts = opts or SolverOptions(qp_iter=spec.qp_iter)
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    for s in scenarios:
+        print(f"{s}: solving {n_runs} scenarios (N={spec.n_solv}, "
+              f"M={spec.n_obst}, qp_iter={opts.qp_iter}) on {dev}")
+        data = run_scenario_batch(spec, opts, s, n_runs=n_runs, max_iter=max_iter,
+                                  dtype=dtype, backend=backend,
+                                  compat_rng=compat_rng, device=dev)
+        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        np.savetxt(os.path.join(out_dir, f"{stamp}_experiment_data.csv"), data,
+                   delimiter=";")
+        exp = {
+            "slack": True, "random_move": True,
+            "init_guess": opts.init_guess_when_error,
+            "scenario": s, "TF": spec.tf, "N_SOLV": spec.n_solv,
+            "N_OBST": spec.n_obst, "QP_ITER": opts.qp_iter,
+            "engine": "doa_mpc_tpu_torch", "integrator": opts.integrator,
+            "dtype": str(dtype).replace("torch.", ""),
+            "compat_pred_bug": opts.compat_pred_bug,
+            "compat_rng": compat_rng,
+            "fail_mu_tol": opts.fail_mu_tol,
+            "fail_stat_tol": opts.fail_stat_tol,
+            "backend": backend,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else str(dev)),
+        }
+        if opts.init_guess == "interpolate":
+            exp["interpolate_init"] = True
+        with open(os.path.join(out_dir, f"{stamp}_experiment_spec.json"), "w") as f:
+            json.dump(exp, f)
+        results[s] = data
+        print(f"  collision={data[:, 0].mean():.2%} "
+              f"reached={data[:, 1].mean():.2%} "
+              f"oob={data[:, 5].mean():.2%} "
+              f"median_steps={np.median(data[:, 4]):.0f}")
+    return results

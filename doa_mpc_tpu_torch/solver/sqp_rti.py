@@ -1,0 +1,184 @@
+"""SQP real-time-iteration (RTI) controller (``doa_mpc_tpu/solver/sqp_rti.py``).
+
+Per control tick: one Gauss-Newton linearization around the warm-started
+guess, one structured QP, a full step. Unlike the JAX package, whose
+functions are single-scenario and ``vmap``-ed, :meth:`RtiController.build_qp`
+here is written for a leading batch axis B:
+
+- LINEAR_LS cost on (x, y, v, omega, u_a, u_alpha) with W = blkdiag(2 I4,
+  0.15 I2), terminal 5 I4, path stages scaled by dt, Levenberg-Marquardt
+  ``lm_reg`` inside the scaled stage cost;
+- boxes |x|, |y| <= 7 and |v|, |omega| <= 10 on stages 1..N-1, |u| <= 8;
+- soft obstacle rows with the distance-scaled, stage-discounted weights
+  alpha_i = 1e4 (||sel(x0) - [goal, 0, 0]||^2 + 50) (N - i) / N;
+- warm-start shift and the two cold-start strategies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+from torch.func import jacfwd, vmap
+
+from doa_mpc_tpu_torch.config import CostParams, SolverOptions, WorldSpec, resolve_device
+from doa_mpc_tpu_torch.models.unicycle import obstacle_h, obstacle_h_jac, safe_dist_sq
+from doa_mpc_tpu_torch.ops.integrators import make_integrator
+from doa_mpc_tpu_torch.ops.ip_fused import QpStructure
+from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, IDXBX, OcpQp, scatter_idxbx
+
+# The static structure of every QP build_qp produces (diagonal Q/R, S == 0,
+# C nonzero only in the x/y columns, identity x/y columns of A, Zl == zl);
+# tests/test_torch_rti.py checks each clause.
+UNICYCLE_QP_STRUCTURE = QpStructure(
+    q_diag=True, r_diag=True, s_zero=True,
+    c_cols=(0, 1), a_unit_cols=(0, 1), zl_eq_zl2=True)
+
+
+class RtiState(NamedTuple):
+    """Warm-started trajectories: x_traj (..., N+1, nx), u_traj (..., N, nu)."""
+
+    x_traj: torch.Tensor
+    u_traj: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class RtiController:
+    """Bound methods for one RTI configuration."""
+
+    spec: WorldSpec
+    options: SolverOptions
+    integrate: Callable          # Phi(x, u) over leading batch dims
+    lin: Callable                # (xs, us) -> (Phi, A, B) over leading batch dims
+    dtype: torch.dtype
+    device: torch.device
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+    def cold_start(self, x0) -> RtiState:
+        """Every stage at x0 with v, omega zeroed; controls zero. ``x0`` is
+        (..., nx)."""
+        n = self.spec.n_solv
+        xg = self._t(x0).clone()
+        xg[..., 3:] = 0.0
+        x_traj = xg.unsqueeze(-2).expand(xg.shape[:-1] + (n + 1, xg.shape[-1])).clone()
+        u_traj = torch.zeros(xg.shape[:-1] + (n, self.spec.nu),
+                             dtype=xg.dtype, device=xg.device)
+        return RtiState(x_traj, u_traj)
+
+    def initial_guess(self, x0, goal) -> RtiState:
+        """``options.init_guess``: "current" is :meth:`cold_start`;
+        "interpolate" reproduces the reference's commented straight-line
+        variant with its bugs (x never moves, heading atan2(dy, 0))."""
+        if self.options.init_guess != "interpolate":
+            return self.cold_start(x0)
+        n = self.spec.n_solv
+        x0, goal = self._t(x0), self._t(goal)
+        frac = torch.arange(n + 1, dtype=x0.dtype, device=x0.device) / n
+        y = x0[..., 1:2] + frac * (goal[1] - x0[..., 1:2])
+        psi = torch.atan2(goal[1] - x0[..., 1:2], torch.zeros_like(x0[..., 1:2]))
+        ones = torch.ones_like(y)
+        zeros = torch.zeros_like(y)
+        x_traj = torch.stack([x0[..., 0:1] * ones, y, psi * ones, zeros, zeros], dim=-1)
+        u_traj = torch.zeros(x0.shape[:-1] + (n, self.spec.nu),
+                             dtype=x0.dtype, device=x0.device)
+        return RtiState(x_traj, u_traj)
+
+    def shift(self, state: RtiState) -> RtiState:
+        """Stages move one left, the terminal state repeats, the last
+        control is zeroed."""
+        x = torch.cat([state.x_traj[..., 1:, :], state.x_traj[..., -1:, :]], dim=-2)
+        u = torch.cat([state.u_traj[..., 1:, :],
+                       torch.zeros_like(state.u_traj[..., :1, :])], dim=-2)
+        return RtiState(x, u)
+
+    def build_qp(self, state: RtiState, x0: torch.Tensor, goal: torch.Tensor,
+                 obst_traj: torch.Tensor, params: CostParams) -> OcpQp:
+        """Gauss-Newton linearization around the guess -> batched OCP QP.
+
+        ``state`` (B, N+1, nx)/(B, N, nu), ``x0`` (B, nx), ``goal`` (2,),
+        ``obst_traj`` the (B, N+1, M, 2) obstacle forecast."""
+        spec, opts = self.spec, self.options
+        n, nx, nu = spec.n_solv, spec.nx, spec.nu
+        dt = spec.tf / spec.n_solv
+        xg, ug = state.x_traj, state.u_traj
+        nb = xg.shape[0]
+        kw = dict(dtype=xg.dtype, device=xg.device)
+
+        phi, A, Bm = self.lin(xg[:, :-1], ug)
+        c = phi - xg[:, 1:]
+
+        sc = torch.full((n + 1,), dt if opts.cost_scale_dt else 1.0, **kw)
+        sc[-1] = 1.0
+        w_q = scatter_idxbx(params.q_diag, nx)
+        w_qe = scatter_idxbx(params.qe_diag, nx)
+        yref = torch.zeros((nx,), **kw)
+        yref[0], yref[1] = goal[0], goal[1]
+
+        lm = params.lm_reg
+        lm_sc = sc if opts.lm_scale_dt else torch.ones_like(sc)
+        eye_x, eye_u = torch.eye(nx, **kw), torch.eye(nu, **kw)
+        Q = (sc[:-1, None, None] * torch.diag(w_q)[None]
+             + (lm_sc[:-1, None, None] * lm) * eye_x[None])
+        Q_N = torch.diag(w_qe) + lm * eye_x
+        Q = torch.cat([Q, Q_N[None]], 0).expand(nb, n + 1, nx, nx)
+        w_stage = torch.cat([w_q[None].expand(n, nx), w_qe[None]], 0)
+        q = sc[:, None] * (w_stage * (xg - yref))
+
+        R = (sc[:-1, None, None] * torch.diag(params.r_diag)[None]
+             + (lm_sc[:-1, None, None] * lm) * eye_u[None]).expand(nb, n, nu, nu)
+        r = sc[:-1, None] * params.r_diag * ug
+        S = torch.zeros((nb, n, nu, nx), **kw)
+
+        lb_u = -params.u_bound - ug
+        ub_u = params.u_bound - ug
+        lo = torch.stack([-params.x_bound, -params.x_bound,
+                          -params.v_bound, -params.v_bound])
+        xg_sel = xg[..., list(IDXBX)]
+        lb_x = (lo - xg_sel).clone()
+        ub_x = (-lo - xg_sel).clone()
+        for k in (0, n):          # stage 0 is the x0 equality, stage N has no box
+            lb_x[:, k] = -BIG_BOUND
+            ub_x[:, k] = BIG_BOUND
+
+        hval = obstacle_h(xg, obst_traj, safe_dist_sq(spec))
+        C = obstacle_h_jac(xg, obst_traj)
+
+        goal4 = torch.zeros((len(IDXBX),), **kw)
+        goal4[0], goal4[1] = goal[0], goal[1]
+        scale = params.slack_scale * (
+            torch.sum((x0[:, list(IDXBX)] - goal4) ** 2, dim=-1) + params.slack_offset)
+        stage_idx = torch.arange(n + 1, **kw)
+        alpha = scale[:, None] * (n - stage_idx) / n          # alpha_N = 0
+        slack_sc = sc if opts.slack_scale_dt else torch.ones_like(sc)
+        zl = (slack_sc[None, :, None] * alpha[:, :, None]).expand(nb, n + 1, spec.n_obst)
+
+        return OcpQp(A=A, B=Bm, c=c, dx0=x0 - xg[:, 0], Q=Q, q=q, R=R, r=r, S=S,
+                     lb_u=lb_u, ub_u=ub_u, lb_x=lb_x, ub_x=ub_x,
+                     C=C, hval=hval, zl=zl, Zl=zl)
+
+
+def make_rti_controller(spec: WorldSpec, options: SolverOptions | None = None,
+                        dtype=torch.float32, device="cuda") -> RtiController:
+    options = options or SolverOptions(qp_iter=spec.qp_iter)
+    dev = resolve_device(device)
+    step = make_integrator(options)
+    dt = spec.tf / spec.n_solv
+
+    def integrate(x, u):
+        return step(x, u, dt)
+
+    jac = vmap(jacfwd(integrate, argnums=(0, 1)))
+
+    def lin(xs, us):
+        """(Phi, dPhi/dx, dPhi/du) over (..., nx)/(..., nu) stage arrays."""
+        lead = xs.shape[:-1]
+        x, u = xs.reshape(-1, xs.shape[-1]), us.reshape(-1, us.shape[-1])
+        A, B = jac(x, u)
+        return (integrate(xs, us), A.reshape(lead + A.shape[1:]),
+                B.reshape(lead + B.shape[1:]))
+
+    return RtiController(spec=spec, options=options, integrate=integrate,
+                         lin=lin, dtype=dtype, device=dev)

@@ -1,0 +1,136 @@
+"""The slice as a whole: the PyTorch port's batched closed loop against the
+JAX package's ``make_batched_rollout(backend="xla")`` in float64, the
+experiment harness against JAX's, and the CLI's artifacts.
+
+Both packages start from the same state (carried across with
+``doa_mpc_tpu_torch.interop``) and consume the same compat_rng obstacle
+noise. The two QP solvers differ only in association order (see
+``test_torch_ip_fused.py``), so over 30 ticks the float64 trajectories stay
+within 1e-6 and every discrete outcome agrees exactly."""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from doa_mpc_tpu.config import SolverOptions as JOptions, WorldSpec as JSpec
+from doa_mpc_tpu.config import default_cost_params as j_params
+from doa_mpc_tpu.sim.closed_loop import init_loop_state as j_init
+from doa_mpc_tpu.sim.closed_loop import make_batched_rollout as j_rollout
+from doa_mpc_tpu.sim.compat_rng import mt_experiment_batch
+from doa_mpc_tpu.sim.experiments import run_scenario_batch as j_run
+from doa_mpc_tpu.sim.obstacles import robot_start_goal
+from doa_mpc_tpu.solver.sqp_rti import make_rti_controller as j_make
+from doa_mpc_tpu_torch import interop
+from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
+from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused
+from doa_mpc_tpu_torch.sim.closed_loop import make_batched_rollout, metrics_of
+from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
+from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, M, B, TICKS = 6, 3, 4, 30
+
+
+def _specs(qp_iter=6):
+    return (JSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
+            JOptions(qp_iter=qp_iter, integrator="rk4"),
+            WorldSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
+            SolverOptions(qp_iter=qp_iter, integrator="rk4"))
+
+
+def test_rollout_matches_jax_f64():
+    jspec, jopts, spec, opts = _specs()
+    jc = j_make(jspec, jopts, dtype=jnp.float64)
+    start, goal = robot_start_goal(jspec)
+    obst, noise = mt_experiment_batch(range(B), jspec, "RANDOM", max_iter=TICKS,
+                                      dtype=np.float64)
+    st = j_init(jax.random.PRNGKey(0), jc, jnp.asarray(start), goal,
+                batch_shape=(B,), obst=obst)
+    # row 0 starts near the goal, reaches it after ~20 ticks and stays frozen
+    x0 = np.asarray(st.x0).copy()
+    x0[0, :4] = [6.6, 6.7, 0.8, 0.4]
+    x0[1, :4] = [6.2, 6.4, 0.7, 0.6]
+    st = st._replace(x0=jnp.asarray(x0), rti=jax.vmap(
+        lambda x: jc.initial_guess(x, jnp.asarray(goal)))(jnp.asarray(x0)))
+    final_j = jax.jit(j_rollout(jc, goal, j_params(jspec, dtype=jnp.float64),
+                                max_iter=TICKS, backend="xla",
+                                use_noise_traj=True))(st, jnp.asarray(noise))
+
+    tc = make_rti_controller(spec, opts, dtype=torch.float64, device="cpu")
+    ts = interop.loop_state_from_numpy(jax.tree.map(np.asarray, st), "cpu", torch.float64)
+    before = solve_ocp_qp_fused.launches
+    final_t = make_batched_rollout(
+        tc, goal, default_cost_params(spec, dtype=torch.float64, device="cpu"),
+        max_iter=TICKS, use_noise_traj=True)(ts, torch.as_tensor(noise))
+    assert solve_ocp_qp_fused.launches == before      # CPU: the plain version
+
+    reached = np.asarray(final_j.reached)
+    assert reached.any() and not reached.all()
+    for name in ("steps", "reached", "done", "oob"):
+        np.testing.assert_array_equal(getattr(final_t, name).numpy(),
+                                      np.asarray(getattr(final_j, name)), err_msg=name)
+    assert final_t.steps.dtype == torch.int32
+    pairs = [("x0", final_t.x0, final_j.x0),
+             ("x_traj", final_t.rti.x_traj, final_j.rti.x_traj),
+             ("u_traj", final_t.rti.u_traj, final_j.rti.u_traj),
+             ("min_margin", final_t.min_margin, final_j.min_margin),
+             ("dist", final_t.dist, final_j.dist),
+             ("obst", final_t.obst.pos, final_j.obst.pos)]
+    for name, got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6,
+                                   err_msg=name)
+    hit_t = metrics_of(final_t).hit.numpy()
+    np.testing.assert_array_equal(hit_t, np.asarray(final_j.min_margin) <= 0)
+
+
+def test_run_scenario_batch_compat_rows_match_jax():
+    jspec, jopts, spec, opts = _specs(qp_iter=4)
+    want = j_run(jspec, jopts, "RANDOM", n_runs=3, max_iter=12, dtype=jnp.float64,
+                 backend="xla", compat_rng=True)
+    got = run_scenario_batch(spec, opts, "RANDOM", n_runs=3, max_iter=12,
+                             dtype=torch.float64, compat_rng=True, device="cpu")
+    assert got.shape == (3, 6) and got.dtype == np.float64
+    np.testing.assert_array_equal(got[:, [0, 1, 4, 5]], want[:, [0, 1, 4, 5]])
+    np.testing.assert_allclose(got[:, [2, 3]], want[:, [2, 3]], rtol=0, atol=1e-6)
+
+
+def test_run_scenario_batch_generator_path_is_seeded():
+    _, _, spec, opts = _specs(qp_iter=2)
+    a = run_scenario_batch(spec, opts, "CENTER", n_runs=2, max_iter=4, seed=5,
+                           dtype=torch.float64, device="cpu")
+    b = run_scenario_batch(spec, opts, "CENTER", n_runs=2, max_iter=4, seed=5,
+                           dtype=torch.float64, device="cpu")
+    z = run_scenario_batch(spec, opts, "CENTER", n_runs=2, max_iter=4, seed=5,
+                           dtype=torch.float64, device="cpu", backend="zero")
+    np.testing.assert_array_equal(a, b)
+    assert np.isfinite(a).all() and a.shape == (2, 6)
+    assert (z[:, 4] == 4).all()          # a zero step never reaches the goal
+    with pytest.raises(ValueError, match="not ported"):
+        run_scenario_batch(spec, opts, "CENTER", n_runs=1, max_iter=1,
+                           device="cpu", backend="xla")
+
+
+def test_cli_experiment_writes_csv_and_spec(tmp_path):
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "doa_mpc_tpu_torch", "experiment", "--device", "cpu",
+           "--runs", "2", "--max-iter", "5", "--n-solv", "4", "--n-obst", "2",
+           "--qp-iter", "2", "--scenarios", "RANDOM", "--out", str(out)]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert res.returncode == 0, res.stderr
+    (csv,) = glob.glob(str(out / "*_experiment_data.csv"))
+    data = np.loadtxt(csv, delimiter=";")
+    assert data.shape == (2, 6) and np.isfinite(data).all()
+    (spec_path,) = glob.glob(str(out / "*_experiment_spec.json"))
+    spec = json.load(open(spec_path))
+    assert spec["engine"] == "doa_mpc_tpu_torch" and spec["device"] == "cpu"
+    assert spec["N_SOLV"] == 4 and spec["N_OBST"] == 2 and spec["QP_ITER"] == 2
+    assert spec["scenario"] == "RANDOM" and spec["backend"] == "fused"

@@ -1,0 +1,128 @@
+"""Kernel K1 on a CUDA card against its plain PyTorch version.
+
+These tests need a card and skip without one. They import no JAX, so they
+also run where only PyTorch is installed (tests/conftest.py imports JAX, so
+such a machine runs them with ``--noconftest``):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
+from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused, solve_ocp_qp_fused_ref
+from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, OcpQp
+from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "hard_qps_f32.npz")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _qps(nb, N=20, M=5, seed=0):
+    """Random box- and soft-constrained OCP QPs (the recipe of
+    tests/test_ip_qp._make_qp, batched), float32."""
+    rng = np.random.default_rng(seed)
+    nx, nu = 5, 2
+    G = rng.standard_normal((nb, N + 1, nx, nx))
+    H = rng.standard_normal((nb, N, nu, nu))
+    lb_x = np.concatenate([-BIG_BOUND * np.ones((nb, 1, 4)), -1.5 * np.ones((nb, N - 1, 4)),
+                           -BIG_BOUND * np.ones((nb, 1, 4))], 1)
+    C = np.zeros((nb, N + 1, M, nx))
+    C[..., :2] = rng.standard_normal((nb, N + 1, M, 2))
+    qp = OcpQp(
+        A=0.9 * np.eye(nx) + 0.05 * rng.standard_normal((nb, N, nx, nx)),
+        B=0.3 * rng.standard_normal((nb, N, nx, nu)),
+        c=0.1 * rng.standard_normal((nb, N, nx)),
+        dx0=0.3 * rng.standard_normal((nb, nx)),
+        Q=0.5 * G @ np.swapaxes(G, -1, -2) + np.eye(nx),
+        q=2.0 * rng.standard_normal((nb, N + 1, nx)),
+        R=0.5 * H @ np.swapaxes(H, -1, -2) + np.eye(nu),
+        r=2.0 * rng.standard_normal((nb, N, nu)),
+        S=np.zeros((nb, N, nu, nx)),
+        lb_u=-0.4 * np.ones((nb, N, nu)), ub_u=0.4 * np.ones((nb, N, nu)),
+        lb_x=lb_x, ub_x=-lb_x, C=C,
+        hval=0.5 * rng.standard_normal((nb, N + 1, M)),
+        zl=10.0 * np.ones((nb, N + 1, M)), Zl=20.0 * np.ones((nb, N + 1, M)))
+    return OcpQp(*[torch.tensor(a, dtype=torch.float32) for a in qp])
+
+
+def _to(qp, dev):
+    return OcpQp(*[a.to(dev) for a in qp])
+
+
+@pytest.mark.parametrize("nb", [1, 37, 512])
+def test_kernel_matches_plain_one_iteration(cuda, nb):
+    qp = _to(_qps(nb), cuda)
+    before = solve_ocp_qp_fused.launches
+    sol = solve_ocp_qp_fused(qp, iters=1)
+    torch.cuda.synchronize()
+    assert solve_ocp_qp_fused.launches == before + 1
+    ref = solve_ocp_qp_fused_ref(qp, iters=1)
+    for f in ("dx", "du", "s"):
+        torch.testing.assert_close(getattr(sol, f), getattr(ref, f), rtol=0, atol=5e-4)
+    torch.testing.assert_close(sol.mu, ref.mu, rtol=1e-5, atol=0)
+
+
+def test_kernel_tracks_f64_like_plain_converged(cuda):
+    """After 25 f32 iterations at N=20, M=5 the kernel and the plain version
+    differ by up to ~4e-3 on a few elements (association order amplified by
+    the centering power), so both are judged against the converged float64
+    plain solve by the rule of scripts/tpu_equiv_check.py."""
+    qp = _to(_qps(256, seed=1), cuda)
+    sol = solve_ocp_qp_fused(qp, iters=25)
+    ref = solve_ocp_qp_fused_ref(qp, iters=25)
+    truth = solve_ocp_qp_fused_ref(OcpQp(*[a.double() for a in qp]), iters=80)
+    assert float(sol.mu.max()) < 1e-6
+    q = torch.tensor([0.5, 0.95], dtype=torch.float64, device=cuda)
+    for f in ("dx", "du"):
+        want = getattr(truth, f)
+        e_k = (getattr(sol, f).double() - want).abs().flatten(1).amax(1)
+        e_p = (getattr(ref, f).double() - want).abs().flatten(1).amax(1)
+        (mk, pk), (mp, pp) = torch.quantile(e_k, q).tolist(), torch.quantile(e_p, q).tolist()
+        assert mk <= max(2 * mp, 1e-3) and pk <= max(2 * pp, 1e-2), (f, mk, pk, mp, pp)
+
+
+def test_kernel_hard_qps_stay_finite(cuda):
+    d = np.load(FIXTURE)
+    qp = OcpQp(*[torch.as_tensor(d[f], device=cuda) for f in OcpQp._fields])
+    sol = solve_ocp_qp_fused(qp, iters=int(d["iters"]))
+    for a in sol:
+        assert torch.isfinite(a).all()
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    qp = _to(_qps(4), cuda)
+    before = solve_ocp_qp_fused.launches
+    with pytest.raises(TypeError, match="float32"):
+        solve_ocp_qp_fused(OcpQp(*[a.double() for a in qp]), iters=1)
+    with pytest.raises(ValueError, match="OcpQp.R"):
+        solve_ocp_qp_fused(qp._replace(R=qp.R[:, :-1]), iters=1)
+    with pytest.raises(ValueError, match="iters"):
+        solve_ocp_qp_fused(qp, iters=0)
+    assert solve_ocp_qp_fused.launches == before
+
+
+def test_main_path_on_cuda_goes_through_the_kernel(cuda):
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=6)
+    opts = SolverOptions(qp_iter=6, integrator="rk4", compat_pred_bug=True)
+    before = solve_ocp_qp_fused.launches
+    gpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=15,
+                             compat_rng=True, device=cuda)
+    assert solve_ocp_qp_fused.launches == before + 15
+    cpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=15,
+                             compat_rng=True, device="cpu")
+    assert np.isfinite(gpu).all()
+    np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
+    np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)

@@ -1,0 +1,219 @@
+"""Kernel K1 of the PyTorch port (``doa_mpc_tpu_torch/ops/ip_fused.py``).
+
+The plain PyTorch version is held against the JAX package's XLA solver
+``solve_ocp_qp(..., sigma_retry=0.0)``. The JAX fused Pallas kernel cannot
+serve as the CPU oracle (its interpret mode is far too slow here), and the
+two follow the same algorithm: they differ only in the association order of
+the fraction-to-boundary rule and of mu_aff (``tests/test_ip_pallas.py``), so
+float64 keeps them within 1e-8 for a few iterations. In float32 the
+centering power (mu_aff/mu)^3 amplifies those last-ulp differences, hence the
+5e-4 / 2e-3 tolerances of ``tests/test_ip_pallas.py``.
+
+The CUDA source is also compiled here as host C++ with g++ (its solve body
+is ``__host__ __device__``) and held against the plain version in float64.
+Its launches on a card are tested in ``tests/test_torch_cuda.py``.
+"""
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from doa_mpc_tpu.ops.ip_qp import solve_ocp_qp
+from doa_mpc_tpu_torch.interop import ocp_qp_from_numpy
+from doa_mpc_tpu_torch.ops import ip_fused
+from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused, solve_ocp_qp_fused_ref
+from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp, normalize_cost
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "hard_qps_f32.npz")
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_random_qps(n=4, N=6, M=3, seed=0):
+    from test_ip_qp import _make_qp
+
+    rng = np.random.default_rng(seed)
+    qps = [_make_qp(rng, N=N, M=M, seed_scale=2.0) for _ in range(n)]
+    return OcpQp(*[np.stack([np.asarray(getattr(q, f)) for q in qps])
+                   for f in OcpQp._fields])
+
+
+def random_qps(n, dtype, **kw):
+    """``n`` random OCP QPs (``tests/test_ip_qp._make_qp``) as a torch batch."""
+    return ocp_qp_from_numpy(_numpy_random_qps(n, **kw), device="cpu", dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_controller_qps(n=4, N=6, M=3):
+    """QPs from the JAX controller's build_qp on compat_rng worlds, around a
+    perturbed warm start so boxes and soft rows are in play (cached: the
+    arrays are only read)."""
+    from doa_mpc_tpu.config import SolverOptions, WorldSpec, default_cost_params
+    from doa_mpc_tpu.sim.closed_loop import init_loop_state
+    from doa_mpc_tpu.sim.compat_rng import mt_experiment_batch
+    from doa_mpc_tpu.sim.obstacles import predict_trajectory, robot_start_goal
+    from doa_mpc_tpu.solver.sqp_rti import make_rti_controller
+
+    spec = WorldSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=6)
+    ctrl = make_rti_controller(spec, SolverOptions(qp_iter=6, integrator="rk4"),
+                               dtype=jnp.float64)
+    params = default_cost_params(spec, dtype=jnp.float64)
+    start, goal = robot_start_goal(spec)
+    obst, _ = mt_experiment_batch(range(n), spec, "RANDOM", 1, dtype=np.float64)
+    obst = obst._replace(pos=obst.pos * 0.25 - 5.0)   # obstacles near the start
+    st = init_loop_state(jax.random.PRNGKey(0), ctrl, jnp.asarray(start), goal,
+                         batch_shape=(n,), obst=obst)
+    rng = np.random.default_rng(1)
+    rti = st.rti._replace(
+        x_traj=st.rti.x_traj + 0.3 * rng.standard_normal(st.rti.x_traj.shape),
+        u_traj=st.rti.u_traj + rng.standard_normal(st.rti.u_traj.shape))
+    pred = jnp.moveaxis(predict_trajectory(st.obst, spec, N), 0, 1)
+    qp = jax.vmap(lambda r, x0, p: ctrl.build_qp(r, x0, goal, p, params))(
+        rti, st.x0, pred)
+    return OcpQp(*[np.asarray(a) for a in qp])
+
+
+QP_SETS = {"random": _numpy_random_qps, "controller": _numpy_controller_qps}
+
+
+def _compare(kind, dtype, iters, atol, mu_rtol=None):
+    qpn = QP_SETS[kind]()
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    ref = solve_ocp_qp(OcpQp(*[jnp.asarray(a, jdt) for a in qpn]), iters=iters,
+                       sigma_retry=0.0)
+    sol = solve_ocp_qp_fused_ref(ocp_qp_from_numpy(qpn, "cpu", dtype), iters=iters)
+    for f in ("dx", "du", "s"):
+        np.testing.assert_allclose(getattr(sol, f).numpy(), np.asarray(getattr(ref, f)),
+                                   rtol=0, atol=atol, err_msg=f)
+    if mu_rtol is not None:
+        np.testing.assert_allclose(sol.mu.numpy(), np.asarray(ref.mu), rtol=mu_rtol)
+        np.testing.assert_allclose(sol.kappa.numpy(), np.asarray(ref.kappa), rtol=mu_rtol)
+    return sol
+
+
+@pytest.mark.parametrize("kind", ["random", "controller"])
+@pytest.mark.parametrize("iters", [1, 6])
+def test_plain_matches_jax_f64(kind, iters):
+    _compare(kind, torch.float64, iters, atol=1e-8, mu_rtol=1e-8)
+
+
+@pytest.mark.parametrize("kind", ["random", "controller"])
+def test_plain_matches_jax_f64_converged(kind):
+    # near tol = 1e-10 a row's convergence freeze could fall one iteration
+    # apart between the two solvers; 1e-6 covers that case
+    sol = _compare(kind, torch.float64, 25, atol=1e-6)
+    assert float(sol.mu.max()) < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["random", "controller"])
+def test_plain_matches_jax_f32_one_iteration(kind):
+    _compare(kind, torch.float32, 1, atol=5e-4)
+
+
+def test_plain_matches_jax_f32_converged():
+    _compare("random", torch.float32, 25, atol=2e-3)
+
+
+def test_plain_f32_tracks_f64_like_jax_on_controller_qps():
+    """On controller QPs (slack weights ~1e6 before normalization) any f32
+    interior point lands ~1e-1 from the f64 one after a few iterations: the
+    JAX f32 solver does too, and the two f32 solvers drift apart by more than
+    2e-3 by iteration 25. So at 25 iterations each is judged against the
+    float64 plain solve, by the rule of ``scripts/tpu_equiv_check.py``: the
+    port's error is at most max(2x the JAX f32 error, 1e-3)."""
+    qpn = _numpy_controller_qps()
+    truth = solve_ocp_qp_fused_ref(ocp_qp_from_numpy(qpn, "cpu", torch.float64), iters=25)
+    j32 = solve_ocp_qp(OcpQp(*[jnp.asarray(a, jnp.float32) for a in qpn]), iters=25,
+                       sigma_retry=0.0)
+    p32 = solve_ocp_qp_fused_ref(ocp_qp_from_numpy(qpn, "cpu", torch.float32), iters=25)
+    for f in ("dx", "du"):
+        want = getattr(truth, f).numpy()
+        err_j = np.abs(np.asarray(getattr(j32, f)) - want).max()
+        err_p = np.abs(getattr(p32, f).numpy() - want).max()
+        assert err_p <= max(2 * err_j, 1e-3), (f, err_p, err_j)
+
+
+def test_plain_hard_qps_stay_finite():
+    d = np.load(FIXTURE)
+    qp = OcpQp(*[torch.as_tensor(d[f]) for f in OcpQp._fields])
+    assert qp.A.dtype == torch.float32 and qp.A.shape[:2] == (2, 20)
+    sol = solve_ocp_qp_fused(qp, iters=int(d["iters"]))
+    for a in sol:
+        assert torch.isfinite(a).all()
+
+
+def test_cuda_wrapper_validates_inputs():
+    """Shape/dtype checks run before any build or launch."""
+    qp = random_qps(2, torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ip_fused._check_cuda_qp(qp)
+    qp32 = random_qps(2, torch.float32)
+    with pytest.raises(ValueError, match="OcpQp.c"):
+        ip_fused._check_cuda_qp(qp32._replace(c=qp32.c[:, :-1]))
+    ip_fused._check_cuda_qp(qp32)
+
+
+_HARNESS = r"""
+#include "ip_solve.cu"
+extern "C" void host_solve_f64(const double** in, double** out, int B, int N, int M,
+                               int iters, double reg, double tau, double tol,
+                               double stat_tol, double sigma_max) {
+  ipk::Params<double> p{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
+                        in[9], in[10], in[11], in[12], in[13], in[14], in[15], in[16],
+                        out[0], out[1], out[2], out[3], out[4], out[5], B, N, M, iters,
+                        reg, tau, tol, stat_tol, sigma_max};
+  for (int b = 0; b < B; ++b) ipk::ip_solve_one<double>(p, b);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("host_kernel")
+    src = d / "harness.cpp"
+    src.write_text(_HARNESS)
+    lib = d / "libhost.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-I", os.path.dirname(ip_fused.KERNEL_SOURCE),
+                    "-o", str(lib), str(src)], check=True, timeout=120)
+    so = ctypes.CDLL(str(lib))
+    so.host_solve_f64.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                  + [ctypes.c_double] * 5)
+    so.ip_solve_work_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    so.ip_solve_work_floats.restype = ctypes.c_longlong
+    return so
+
+
+@pytest.mark.parametrize("kind", ["random", "controller"])
+@pytest.mark.parametrize("iters", [1, 6])
+def test_kernel_source_on_host_matches_plain_f64(host_kernel, kind, iters):
+    qp = ocp_qp_from_numpy(QP_SETS[kind](), "cpu", torch.float64)
+    tol, reg, sigma_max, stat_tol = ip_fused._constants(torch.float64, None, None)
+    qpn, _ = normalize_cost(qp)
+    nb, N, M = qp.A.shape[0], qp.A.shape[1], qp.C.shape[-2]
+    ins = [ip_fused._batch_last(a) for a in qpn]
+    f64 = dict(dtype=torch.float64)
+    outs = [torch.zeros((N + 1, 5, nb), **f64), torch.zeros((N, 2, nb), **f64),
+            torch.zeros((N + 1, M, nb), **f64), torch.zeros(nb, **f64),
+            torch.zeros(nb, **f64),
+            torch.full((host_kernel.ip_solve_work_floats(N, M) * nb,), np.nan, **f64)]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    host_kernel.host_solve_f64(ptrs(ins), ptrs(outs), nb, N, M, iters,
+                               reg, 0.99, tol, stat_tol, sigma_max)
+    ref = solve_ocp_qp_fused_ref(qp, iters=iters)
+    for got, want in zip(outs[:3], (ref.dx, ref.du, ref.s)):
+        np.testing.assert_allclose(got.permute(2, 0, 1).numpy(), want.numpy(),
+                                   rtol=0, atol=1e-10)
+    np.testing.assert_allclose(outs[3].numpy(), ref.mu.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(outs[4].numpy(), ref.stat_res.numpy(), rtol=0, atol=1e-10)
+
