@@ -5,11 +5,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds kernel K1 (``doa_mpc_tpu_torch/csrc/ip_solve.cu``) with nvcc for
-sm_90a, holds it against its plain PyTorch version on real QPs, drives the
-main path (the seed-matched Monte-Carlo cell ``20221031_215846``: RANDOM,
-TF 2.0, N 20, M 5, 100 seeds x 400 ticks, rk4, 6 IP iterations, f32),
-times the control tick at B=4096 and B=1, and prints one line per phase.
+It builds kernels K1 (``doa_mpc_tpu_torch/csrc/ip_solve.cu``) and K2
+(``doa_mpc_tpu_torch/csrc/riccati.cu``) with nvcc for sm_90a, one nvcc per
+source, both at once. It holds each kernel against its plain PyTorch
+version, and drives two paths through the seed-matched Monte-Carlo cell
+``20221031_215846`` (RANDOM, TF 2.0, N 20, M 5, 100 seeds x 400 ticks, rk4,
+6 IP iterations, f32): the ``fused`` backend (K1, phase 4) and the
+``riccati`` backend (the interior-point solver with K2, phase 7). Each path
+runs with the launch counts set to 0 just before it and read just after.
+It times the control ticks and the kernels, and prints one line per phase.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result; it also does so without CUDA or
@@ -22,6 +26,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
@@ -30,6 +35,8 @@ PARITY_CSV = os.path.join(REPO, "results", "parity_r5", "prod_rk4_qp6",
 HARD_QPS = os.path.join(REPO, "tests", "fixtures", "hard_qps_f32.npz")
 B_MAIN, N, M, QP_ITER = 4096, 20, 5, 6
 CAPTURE_TICKS = (0, 10, 30)
+# tick timing of the solver backends: fewer ticks than phase 5, which times K1
+SOLVER_WARMUP, SOLVER_REPS = 5, 20
 
 
 def _die(msg):
@@ -64,6 +71,26 @@ def _time_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
+def _kernel_device_ms(torch, fn, name, reps):
+    """Device time of the kernel whose name contains ``name``, per launch,
+    from ``torch.profiler`` over ``reps`` calls of ``fn`` (CUDA events around
+    back-to-back calls would time the host's enqueue of the wrapper)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in evs)
+    us = sum(getattr(e, "self_device_time_total", 0) for e in evs)
+    _check(count == reps and us > 0,
+           f"profiler saw {count} launches of {name} with {us} us of device time")
+    return us / 1e3 / count
+
+
 def main():
     try:
         import torch
@@ -71,16 +98,19 @@ def main():
         _die("torch is not installed")
     if not torch.cuda.is_available():
         _die("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
-    if not os.path.isfile(os.path.join(REPO, "doa_mpc_tpu_torch", "csrc", "ip_solve.cu")):
-        _die("run from the root of a checkout: doa_mpc_tpu_torch/ is missing")
+    for src in ("ip_solve.cu", "riccati.cu"):
+        if not os.path.isfile(os.path.join(REPO, "doa_mpc_tpu_torch", "csrc", src)):
+            _die("run from the root of a checkout: doa_mpc_tpu_torch/ is missing")
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)
 
     import numpy as np
     from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
-    from doa_mpc_tpu_torch.ops import ip_fused
+    from doa_mpc_tpu_torch.ops import cuda_build, ip_fused, riccati_fused
     from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused, solve_ocp_qp_fused_ref
+    from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
     from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp
+    from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
     from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
     from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
     from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
@@ -91,20 +121,27 @@ def main():
     card = _card()
 
     # ---- phase 1: device -------------------------------------------------
-    nvcc_v = subprocess.run([ip_fused._nvcc(), "--version"], capture_output=True,
+    nvcc_v = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True,
                             text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"phase 1 device: card={card} torch={torch.__version__} "
           f"cuda={torch.version.cuda} nvcc={nvcc_v!r}", flush=True)
 
-    # ---- phase 2: build --------------------------------------------------
+    # ---- phase 2: build both kernels at once -------------------------------
+    def timed_build(module):
+        t = time.time()
+        path = module.build_kernel()
+        return path, time.time() - t
+
     t0 = time.time()
-    lib_path = ip_fused.build_kernel()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(timed_build, (ip_fused, riccati_fused)))
     ip_fused._library()
+    riccati_fused._library()
     build_s = time.time() - t0
-    with open(lib_path[:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}; "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"phase 2 build: both kernels in {build_s:.2f} s (one nvcc each, in parallel); "
+          + "; ".join(f"{name} {sec:.2f} s -> {os.path.relpath(path, REPO)}, ptxas: "
+                      + " | ".join(cuda_build.ptxas_report(path))
+                      for name, (path, sec) in zip(("K1", "K2"), builds)), flush=True)
 
     # ---- phase 3: kernel vs plain on real QPs ------------------------------
     spec = WorldSpec(tf=2.0, n_solv=N, n_obst=M, qp_iter=QP_ITER)
@@ -166,7 +203,7 @@ def main():
     # ---- phase 4: main path, seed-matched cell 20221031_215846 -------------
     ref = np.loadtxt(PARITY_CSV, delimiter=";")
     n_runs, max_iter = ref.shape[0], 400
-    solve_ocp_qp_fused.launches = 0
+    solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
     t0 = time.time()
     data = run_scenario_batch(spec, opts, "RANDOM", n_runs=n_runs, max_iter=max_iter,
                               dtype=torch.float32, backend="fused", compat_rng=True,
@@ -174,6 +211,7 @@ def main():
     wall = time.time() - t0
     launches = solve_ocp_qp_fused.launches
     _check(launches == max_iter, f"K1 launched {launches} times in {max_iter} ticks")
+    _check(riccati_solve_fused.launches == 0, "the fused path launched K2")
     _check(data.shape == (n_runs, 6) and np.isfinite(data).all(), "non-finite metric rows")
     np.savetxt(os.path.join(OUT_DIR, "20221031_215846_RANDOM_h100.csv"), data, delimiter=";")
     hit, reached = data[:, 0].mean(), data[:, 1].mean()
@@ -215,11 +253,134 @@ def main():
           f"glue-only {ms_zero_1:.4f} ms; K1 {k1_ms_1:.4f} ms/launch | "
           f"peak mem {mem:.0f} MiB; card={card}", flush=True)
 
+    # ---- phase 6: K2 against its plain version --------------------------------
+    # (a) seeded LQR batches with SPD costs, at the solver's full width
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((B_MAIN, N + 1, 5, 5))
+    H = rng.standard_normal((B_MAIN, N, 2, 2))
+    lqr64 = [torch.tensor(a, device=dev) for a in (
+        G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(5), H @ np.swapaxes(H, -1, -2) + 0.5 * np.eye(2),
+        0.1 * rng.standard_normal((B_MAIN, N, 2, 5)),
+        0.9 * np.eye(5) + 0.1 * rng.standard_normal((B_MAIN, N, 5, 5)),
+        rng.standard_normal((B_MAIN, N, 5, 2)), rng.standard_normal((B_MAIN, N + 1, 5)),
+        rng.standard_normal((B_MAIN, N, 2)), rng.standard_normal((B_MAIN, N, 5)),
+        rng.standard_normal((B_MAIN, 5)))]
+    lqr32 = [a.float() for a in lqr64]
+    k64, p64 = riccati_solve_fused(*lqr64), riccati_solve_fused_ref(*lqr64)
+    k32, p32 = riccati_solve_fused(*lqr32), riccati_solve_fused_ref(*lqr32)
+    torch.cuda.synchronize()
+    rel64 = max(float((k - p).abs().max()) / max(1.0, float(p.abs().max()))
+                for k, p in zip(k64, p64))
+    _check(rel64 <= 1e-9, f"K2 f64 vs plain f64: relative max|err| {rel64:.3e} > 1e-9")
+    k2_err = max(float((k - p).abs().max()) for k, p in zip(k32, p32))
+    e32 = [(float((k.double() - w).abs().max()), float((p.double() - w).abs().max()))
+           for k, p, w in zip(k32, p32, p64)]
+    _check(all(np.isfinite(ek) and ek <= 2 * ep for ek, ep in e32),
+           f"K2 f32 further from the f64 plain output than 2x the plain f32 version: {e32}")
+
+    # (b) real build_qp QPs: the riccati backend against the torch backend
+    # after 1 iteration, then both in f32 against the converged f64 oracle
+    max_err_k2_qp = 0.0
+    rows2 = {}
+    for t, qp in captured.items():
+        a1 = solve_ocp_qp(qp, iters=1, backend="riccati")
+        b1 = solve_ocp_qp(qp, iters=1, backend="torch")
+        err = max(float((getattr(a1, f) - getattr(b1, f)).abs().max()) for f in ("dx", "du", "s"))
+        _check(np.isfinite(err) and err <= 5e-4,
+               f"tick {t}: riccati vs torch backend after 1 iteration differs by {err} > 5e-4")
+        max_err_k2_qp = max(max_err_k2_qp, err)
+        du_ref = solve_ocp_qp(OcpQp(*[a.double() for a in qp]), iters=80, backend="torch").du
+        for iters in (QP_ITER, 50):
+            e_k = (solve_ocp_qp(qp, iters=iters, backend="riccati").du.double()
+                   - du_ref).abs().amax((1, 2))
+            e_p = (solve_ocp_qp(qp, iters=iters, backend="torch").du.double()
+                   - du_ref).abs().amax((1, 2))
+            q = torch.tensor([0.5, 0.95], dtype=torch.float64, device=dev)
+            (mk, pk), (mp, pp) = torch.quantile(e_k, q).tolist(), torch.quantile(e_p, q).tolist()
+            ok = mk <= max(2 * mp, 1e-3) and pk <= max(2 * pp, 1e-2)
+            rows2[f"tick{t}_it{iters}"] = dict(riccati_med=mk, riccati_p95=pk,
+                                               torch_med=mp, torch_p95=pp, ok=ok)
+            _check(ok, f"tick {t}, {iters} iterations: f64 arbitration of the riccati backend "
+                       f"failed (med {mk:.3g} p95 {pk:.3g}; torch-f32 med {mp:.3g} p95 {pp:.3g})")
+    # (c) the captured hard QPs recover through K2
+    hsol2 = solve_ocp_qp(hqp, iters=50, backend="riccati")
+    _check(all(bool(torch.isfinite(a).all()) for a in hsol2), "hard_qps_f32.npz: non-finite (K2)")
+    hard_mu = float(hsol2.mu.max())
+    _check(hard_mu < 1e-2, f"hard_qps_f32.npz through K2: max mu {hard_mu} >= 1e-2")
+    with open(os.path.join(OUT_DIR, "phase6_arbitration.json"), "w") as f:
+        json.dump(rows2, f, indent=1)
+    print(f"phase 6 K2-vs-plain: LQR B={B_MAIN} N={N}: f64 rel max|err|={rel64:.3e} (limit "
+          f"1e-9); f32 max|kernel-plain|={k2_err:.3e}, vs f64 plain kernel/plain "
+          + ", ".join(f"{ek:.2e}/{ep:.2e}" for ek, ep in e32)
+          + f" | real QPs ticks {list(CAPTURE_TICKS)}: riccati vs torch backend 1-iter "
+          f"max|err|={max_err_k2_qp:.3e} (atol 5e-4); f64 arbitration ok: "
+          + "; ".join(f"{k} r_med={v['riccati_med']:.2e} t_med={v['torch_med']:.2e}"
+                      for k, v in rows2.items())
+          + f" | hard_qps 50 iters max mu {hard_mu:.2e}; card={card}", flush=True)
+
+    # ---- phase 7: the riccati path, seed-matched cell 20221031_215846 -------
+    solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+    t0 = time.time()
+    data_r = run_scenario_batch(spec, opts, "RANDOM", n_runs=n_runs, max_iter=max_iter,
+                                dtype=torch.float32, backend="riccati", compat_rng=True,
+                                device=dev)
+    wall_r = time.time() - t0
+    k2_launches = riccati_solve_fused.launches
+    want_launches = max_iter * QP_ITER * 2
+    _check(k2_launches == want_launches,
+           f"K2 launched {k2_launches} times, expected {want_launches}")
+    _check(solve_ocp_qp_fused.launches == 0, "the riccati path launched K1")
+    _check(data_r.shape == (n_runs, 6) and np.isfinite(data_r).all(), "non-finite metric rows")
+    np.savetxt(os.path.join(OUT_DIR, "20221031_215846_RANDOM_h100_riccati.csv"), data_r,
+               delimiter=";")
+    hit_r, reached_r = data_r[:, 0].mean(), data_r[:, 1].mean()
+    _check(abs(hit_r - ref_hit) <= 0.10 and abs(reached_r - ref_reached) <= 0.10,
+           f"riccati path rates off the TPU f32 run: hit {hit_r} vs {ref_hit}, "
+           f"reached {reached_r} vs {ref_reached}")
+    print(f"phase 7 riccati path: {n_runs} seeds x {max_iter} ticks in {wall_r:.1f} s wall; "
+          f"hit={hit_r:.2f} (TPU CSV {ref_hit:.2f}) reached={reached_r:.2f} "
+          f"(TPU CSV {ref_reached:.2f}); per-seed agreement with the TPU CSV "
+          f"hit={(data_r[:, 0] == ref[:, 0]).mean():.2f} "
+          f"reached={(data_r[:, 1] == ref[:, 1]).mean():.2f}, with phase 4's fused run "
+          f"hit={(data_r[:, 0] == data[:, 0]).mean():.2f} "
+          f"reached={(data_r[:, 1] == data[:, 1]).mean():.2f} (reported, not checked); "
+          f"K2 launches={k2_launches}; card={card}", flush=True)
+
+    # ---- phase 8: solver-backend ticks and K2 time ---------------------------
+    def solver_tick_ms(batch, backend):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tk = make_batched_tick(ctrl, goal, params, backend=backend, generator=gen)
+        state = [init_loop_state(ctrl, start, goal, batch_shape=(batch,), generator=gen)]
+
+        def step():
+            state[0] = tk(state[0])
+
+        return _time_ms(torch, step, reps=SOLVER_REPS, warmup=SOLVER_WARMUP)
+
+    ms_r = solver_tick_ms(B_MAIN, "riccati")
+    ms_t = solver_tick_ms(B_MAIN, "torch")
+    ms_r1 = solver_tick_ms(1, "riccati")
+    k2_call_ms = _time_ms(torch, lambda: riccati_solve_fused(*lqr32), reps=50, warmup=3)
+    k2_ms = _kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr32), "riccati_kernel", 50)
+    k2_plain_ms = _time_ms(torch, lambda: riccati_solve_fused_ref(*lqr32), reps=5, warmup=1)
+    print(f"phase 8 solver backends: B={B_MAIN} tick riccati {ms_r:.4f} ms = "
+          f"{B_MAIN / ms_r * 1e3:.0f} solves/s; torch {ms_t:.4f} ms = "
+          f"{B_MAIN / ms_t * 1e3:.0f} solves/s; B=1 tick riccati {ms_r1:.4f} ms "
+          f"({SOLVER_WARMUP} warm-up + {SOLVER_REPS} timed ticks, N={N}, M={M}, "
+          f"{QP_ITER} iters, f32) | K2 {k2_ms:.4f} ms/launch of device time (profiler); "
+          f"wrapper with batch-last packing {k2_call_ms:.4f} ms/call; plain version "
+          f"{k2_plain_ms:.3f} ms/call (B={B_MAIN}, N={N}, f32); card={card}", flush=True)
+
     kernels = [{"name": "ip_solve_f32", "route": "cuda",
                 "source": "doa_mpc_tpu_torch/csrc/ip_solve.cu",
                 "replaces": "doa_mpc_tpu/ops/ip_pallas.py:413",
                 "launches": launches, "max_abs_err": max_err_1,
-                "ms": k1_ms, "plain_ms": plain_ms}]
+                "ms": k1_ms, "plain_ms": plain_ms},
+               {"name": "riccati_f32", "route": "cuda",
+                "source": "doa_mpc_tpu_torch/csrc/riccati.cu",
+                "replaces": "doa_mpc_tpu/ops/riccati_pallas.py:104",
+                "launches": k2_launches, "max_abs_err": k2_err,
+                "ms": k2_ms, "plain_ms": k2_plain_ms}]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,10 +2,13 @@
 
 Closed-loop real-time-iteration MPC for a unicycle robot among moving
 obstacles, batched over thousands of scenarios. The module tree mirrors the
-JAX package; plain tensor code is PyTorch on batch-first tensors, and the
-interior-point QP solve is a hand-written CUDA kernel for the H100
-(``csrc/ip_solve.cu``, wrapped by ``ops/ip_fused.py``). Every entry point
-takes an explicit ``device`` (default ``"cuda"``).
+JAX package; plain tensor code is PyTorch on batch-first tensors. The two
+TPU kernels are hand-written CUDA kernels for the H100: the whole
+interior-point QP solve (``csrc/ip_solve.cu``, wrapped by
+``ops/ip_fused.py``) and the batched Riccati solve that the interior-point
+solver of ``ops/ip_qp.py`` can use (``csrc/riccati.cu``, wrapped by
+``ops/riccati_fused.py``). Every entry point takes an explicit ``device``
+(default ``"cuda"``).
 
 Importing the package turns TF32 off for matmuls and cuDNN: the solver's f32
 algebra needs full-precision products (the CUDA counterpart of the TPU's

@@ -32,9 +32,15 @@ def main(argv=None):
     p.add_argument("--compat-rng", action="store_true",
                    help="replay the reference's exact MT19937 worlds and "
                         "obstacle noise per seed")
-    p.add_argument("--backend", default="fused", choices=["fused", "zero"],
-                   help="QP solve: 'fused' = the CUDA kernel (its plain "
-                        "PyTorch version on the CPU); 'zero' skips the solve")
+    p.add_argument("--backend", default="fused",
+                   choices=["fused", "torch", "riccati", "zero"],
+                   help="QP solve: 'fused' = the whole interior-point solve in "
+                        "CUDA kernel K1 (JAX 'fused'); 'torch' = the "
+                        "interior-point solver with the plain PyTorch Riccati "
+                        "sweep (JAX 'xla'); 'riccati' = the same solver with "
+                        "each Riccati solve in CUDA kernel K2 (JAX 'pallas'); "
+                        "'zero' skips the solve. On the CPU the kernels' plain "
+                        "PyTorch versions run")
     p.add_argument("--device", default="cuda")
 
     args = parser.parse_args(argv)

@@ -25,15 +25,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple
 
 import torch
 
+from doa_mpc_tpu_torch.ops import cuda_build
 from doa_mpc_tpu_torch.ops.ip_qp import IpSolution
 from doa_mpc_tpu_torch.ops.ocp_qp import IDXBX, OcpQp, normalize_cost, scatter_idxbx
 
@@ -42,11 +39,7 @@ _ZL_FLOOR = 1e-6
 _F32MAX = 3.0e38
 _TINY = 1e-30
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG_DIR, "csrc", "ip_solve.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL_SOURCE = os.path.join(cuda_build.CSRC_DIR, "ip_solve.cu")
 
 
 class QpStructure(NamedTuple):
@@ -341,40 +334,10 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    with open(KERNEL_SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-
-
 def build_kernel() -> str:
-    """Compile ``csrc/ip_solve.cu`` into ``_build/`` unless a library built
-    from the same source and flags is there. Returns the library path; the
-    compiler's ``-Xptxas -v`` report is kept beside it (``.log``)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libip_solve_{_source_hash()}.so")
-    if os.path.exists(lib):
-        return lib
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    with open(lib[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/ip_solve.cu`` into ``_build/`` at first use
+    (:func:`cuda_build.build`); returns the library path."""
+    return cuda_build.build(KERNEL_SOURCE)
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,8 +4,10 @@ Per tick, for every scenario of the batch at once:
 
 1. forecast the obstacles (closed-form bounce fold),
 2. linearize and assemble the QPs (``RtiController.build_qp``),
-3. solve all QPs in one call (kernel K1, ``ops/ip_fused.py``),
-4. take the full step and apply u0 to the RK4 plant,
+3. solve all QPs in one call (kernel K1, ``ops/ip_fused.py``, or the
+   interior-point solver of ``ops/ip_qp.py``),
+4. take the full step and apply u0 to the RK4 plant (with the status-4
+   analogue on, rows whose solve failed reset their warm start first),
 5. step the obstacles with velocity noise,
 6. update min-margin / out-of-bounds / goal metrics, shift the warm start,
    and freeze rows that are done (every field of the state, as the
@@ -13,7 +15,7 @@ Per tick, for every scenario of the batch at once:
 
 The reference keeps simulating after a collision; ``hit`` is judged from
 ``min_margin <= 0`` afterwards. The status-4 reset analogue
-(``init_guess_when_error``) is off by default and not ported yet.
+(``SolverOptions.init_guess_when_error``) is off by default.
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ import torch
 
 from doa_mpc_tpu_torch.config import CostParams
 from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused
-from doa_mpc_tpu_torch.ops.ip_qp import IpSolution
+from doa_mpc_tpu_torch.ops.ip_qp import IpSolution, solve_ocp_qp
 from doa_mpc_tpu_torch.sim.obstacles import (
     ObstacleState, generate_obstacles, obstacle_step, predict_trajectory,
 )
 from doa_mpc_tpu_torch.solver.sqp_rti import RtiController, RtiState
 
-BACKENDS = ("fused", "zero")
+BACKENDS = ("fused", "torch", "riccati", "zero")
 
 
 class LoopState(NamedTuple):
@@ -105,16 +107,22 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
                       generator: torch.Generator | None = None):
     """The natively batched control tick.
 
-    Backends: ``'fused'`` solves with kernel K1 (its plain version for CPU
-    tensors); ``'zero'`` skips the solve (a zero step), a profiling aid that
-    leaves only the tick's glue to time. ``generator`` draws the obstacle
-    noise when a tick is called without ``noise``."""
+    Backends:
+
+    - ``'fused'``: the whole interior-point solve in one launch of kernel K1
+      (its plain version for CPU tensors);
+    - ``'torch'``: ``ops/ip_qp.solve_ocp_qp`` with the plain Riccati sweep
+      (the JAX package's ``'xla'``);
+    - ``'riccati'``: the same solver with each Newton solve in kernel K2
+      (the JAX package's ``'pallas'``);
+    - ``'zero'``: skips the solve (a zero step), a profiling aid that leaves
+      only the tick's glue to time.
+
+    ``generator`` draws the obstacle noise when a tick is called without
+    ``noise``."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not ported; choose from {BACKENDS}")
     spec, opts = ctrl.spec, ctrl.options
-    if opts.init_guess_when_error:
-        raise NotImplementedError(
-            "init_guess_when_error (the status-4 analogue) is not ported yet")
     n = spec.n_solv
     goal = torch.as_tensor(goal, dtype=ctrl.dtype, device=ctrl.device)
 
@@ -128,6 +136,10 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
 
         if backend == "fused":
             sol = solve_ocp_qp_fused(qp, iters=opts.qp_iter, tau=opts.ip_tau)
+        elif backend != "zero":
+            # no ``reg``: the solver's dtype default (1e-6 in f32), as the
+            # JAX package's batched tick does
+            sol = solve_ocp_qp(qp, iters=opts.qp_iter, tau=opts.ip_tau, backend=backend)
         else:
             nb = st.x0.shape[0]
             zeros = torch.zeros((nb,), dtype=st.x0.dtype, device=st.x0.device)
@@ -139,7 +151,21 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
                            u_traj=st.rti.u_traj + sol.du)
         u0 = rti_new.u_traj[:, 0]
 
-        x_new = ctrl.integrate(st.x0, u0)
+        # status-4 analogue: rows whose solve did not converge reset their
+        # warm start and (compat_brake_bug) brake the plant; the failed u0
+        # is still applied this tick
+        x0_eff, resets = st.x0, st.resets
+        if opts.init_guess_when_error:
+            fail = ~((sol.mu < opts.fail_mu_tol) & (sol.stat_res < opts.fail_stat_tol))
+            if opts.compat_brake_bug and opts.init_guess != "interpolate":
+                braked = torch.cat([st.x0[:, :3], torch.zeros_like(st.x0[:, 3:])], 1)
+                x0_eff = torch.where(fail[:, None], braked, st.x0)
+            reset = ctrl.initial_guess(x0_eff, goal)
+            rti_new = RtiState(*(torch.where(fail.reshape(-1, 1, 1), a, b)
+                                 for a, b in zip(reset, rti_new)))
+            resets = st.resets + fail.to(torch.int32)
+
+        x_new = ctrl.integrate(x0_eff, u0)
         obst_new = obstacle_step(st.obst, spec, noise=noise, generator=generator)
 
         oob = (st.oob | (torch.abs(x_new[:, 0]) > spec.x_max)
@@ -157,7 +183,7 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
             x0=x_new, rti=rti_shifted, obst=obst_new,
             done=st.done | reached, reached=st.reached | reached,
             oob=oob, min_margin=min_margin, dist=dist, steps=steps,
-            resets=st.resets)
+            resets=resets)
         return LoopState(
             x0=_freeze(st.done, st.x0, new.x0),
             rti=RtiState(*(_freeze(st.done, o, u) for o, u in zip(st.rti, new.rti))),

@@ -40,7 +40,8 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
     Returns a (n_runs, 6) float64 metrics array in the reference CSV column
     order. ``compat_rng`` replays the reference's MT19937 worlds and noise
     (row i uses ``np.random.seed(i)``); otherwise worlds and noise come from
-    a ``torch.Generator`` seeded with ``seed``."""
+    a ``torch.Generator`` seeded with ``seed``. ``backend`` is one of
+    ``sim.closed_loop.BACKENDS`` ('fused', 'torch', 'riccati', 'zero')."""
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet (ROADMAP item 12)")
     dev = resolve_device(device)

@@ -11,7 +11,8 @@ here is written for a leading batch axis B:
 - boxes |x|, |y| <= 7 and |v|, |omega| <= 10 on stages 1..N-1, |u| <= 8;
 - soft obstacle rows with the distance-scaled, stage-discounted weights
   alpha_i = 1e4 (||sel(x0) - [goal, 0, 0]||^2 + 50) (N - i) / N;
-- warm-start shift and the two cold-start strategies.
+- warm-start shift and the two cold-start strategies;
+- :meth:`RtiController.rti_step`, one linearize-solve-step iteration.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from doa_mpc_tpu_torch.config import CostParams, SolverOptions, WorldSpec, resol
 from doa_mpc_tpu_torch.models.unicycle import obstacle_h, obstacle_h_jac, safe_dist_sq
 from doa_mpc_tpu_torch.ops.integrators import make_integrator
 from doa_mpc_tpu_torch.ops.ip_fused import QpStructure
+from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
 from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, IDXBX, OcpQp, scatter_idxbx
 
 # The static structure of every QP build_qp produces (diagonal Q/R, S == 0,
@@ -158,6 +160,20 @@ class RtiController:
         return OcpQp(A=A, B=Bm, c=c, dx0=x0 - xg[:, 0], Q=Q, q=q, R=R, r=r, S=S,
                      lb_u=lb_u, ub_u=ub_u, lb_x=lb_x, ub_x=ub_x,
                      C=C, hval=hval, zl=zl, Zl=zl)
+
+    def rti_step(self, state: RtiState, x0: torch.Tensor, goal: torch.Tensor,
+                 obst_traj: torch.Tensor, params: CostParams):
+        """One real-time iteration for a batch: linearize -> QP -> full step.
+
+        Solves with :func:`ops.ip_qp.solve_ocp_qp` (backend ``"torch"``) at
+        ``options.ip_reg``, unlike the batched tick, which leaves ``reg`` at
+        the solver's default. Returns (new_state, u0 (B, nu), solution); u0
+        is the control applied to the plant."""
+        qp = self.build_qp(state, x0, goal, obst_traj, params)
+        sol = solve_ocp_qp(qp, iters=self.options.qp_iter, tau=self.options.ip_tau,
+                           reg=self.options.ip_reg)
+        new = RtiState(x_traj=state.x_traj + sol.dx, u_traj=state.u_traj + sol.du)
+        return new, new.u_traj[:, 0], sol
 
 
 def make_rti_controller(spec: WorldSpec, options: SolverOptions | None = None,

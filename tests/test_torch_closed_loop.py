@@ -4,10 +4,14 @@ experiment harness against JAX's, and the CLI's artifacts.
 
 Both packages start from the same state (carried across with
 ``doa_mpc_tpu_torch.interop``) and consume the same compat_rng obstacle
-noise. The two QP solvers differ only in association order (see
-``test_torch_ip_fused.py``), so over 30 ticks the float64 trajectories stay
-within 1e-6 and every discrete outcome agrees exactly."""
+noise. Every port backend is held to the JAX ``xla`` rollout: ``fused``
+(kernel K1's plain version) differs from it only in association order (see
+``test_torch_ip_fused.py``), ``torch`` is its port and ``riccati`` runs K2's
+plain version inside the same solver. So over 30 ticks the float64
+trajectories stay within 1e-6 and every discrete outcome agrees exactly,
+with the status-4 analogue off (the default) and on."""
 
+import functools
 import glob
 import json
 import os
@@ -31,6 +35,7 @@ from doa_mpc_tpu.solver.sqp_rti import make_rti_controller as j_make
 from doa_mpc_tpu_torch import interop
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
 from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused
+from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused
 from doa_mpc_tpu_torch.sim.closed_loop import make_batched_rollout, metrics_of
 from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
@@ -39,15 +44,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, M, B, TICKS = 6, 3, 4, 30
 
 
-def _specs(qp_iter=6):
+def _specs(qp_iter=6, status4=False):
     return (JSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
-            JOptions(qp_iter=qp_iter, integrator="rk4"),
+            JOptions(qp_iter=qp_iter, integrator="rk4", init_guess_when_error=status4),
             WorldSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
-            SolverOptions(qp_iter=qp_iter, integrator="rk4"))
+            SolverOptions(qp_iter=qp_iter, integrator="rk4", init_guess_when_error=status4))
 
 
-def test_rollout_matches_jax_f64():
-    jspec, jopts, spec, opts = _specs()
+@functools.lru_cache(maxsize=None)
+def _jax_rollout(status4=False):
+    """Start state, noise and the JAX ``xla`` rollout's final state (numpy)."""
+    jspec, jopts, _, _ = _specs(status4=status4)
     jc = j_make(jspec, jopts, dtype=jnp.float64)
     start, goal = robot_start_goal(jspec)
     obst, noise = mt_experiment_batch(range(B), jspec, "RANDOM", max_iter=TICKS,
@@ -63,18 +70,24 @@ def test_rollout_matches_jax_f64():
     final_j = jax.jit(j_rollout(jc, goal, j_params(jspec, dtype=jnp.float64),
                                 max_iter=TICKS, backend="xla",
                                 use_noise_traj=True))(st, jnp.asarray(noise))
+    return (jax.tree.map(np.asarray, st), noise, goal,
+            jax.tree.map(np.asarray, final_j))
 
+
+def _port_rollout(backend, status4=False):
+    st, noise, goal, _ = _jax_rollout(status4)
+    _, _, spec, opts = _specs(status4=status4)
     tc = make_rti_controller(spec, opts, dtype=torch.float64, device="cpu")
-    ts = interop.loop_state_from_numpy(jax.tree.map(np.asarray, st), "cpu", torch.float64)
-    before = solve_ocp_qp_fused.launches
-    final_t = make_batched_rollout(
+    ts = interop.loop_state_from_numpy(st, "cpu", torch.float64)
+    return make_batched_rollout(
         tc, goal, default_cost_params(spec, dtype=torch.float64, device="cpu"),
-        max_iter=TICKS, use_noise_traj=True)(ts, torch.as_tensor(noise))
-    assert solve_ocp_qp_fused.launches == before      # CPU: the plain version
+        max_iter=TICKS, backend=backend, use_noise_traj=True)(ts, torch.as_tensor(noise))
 
+
+def _assert_final_close(final_t, final_j):
     reached = np.asarray(final_j.reached)
     assert reached.any() and not reached.all()
-    for name in ("steps", "reached", "done", "oob"):
+    for name in ("steps", "reached", "done", "oob", "resets"):
         np.testing.assert_array_equal(getattr(final_t, name).numpy(),
                                       np.asarray(getattr(final_j, name)), err_msg=name)
     assert final_t.steps.dtype == torch.int32
@@ -89,6 +102,34 @@ def test_rollout_matches_jax_f64():
                                    err_msg=name)
     hit_t = metrics_of(final_t).hit.numpy()
     np.testing.assert_array_equal(hit_t, np.asarray(final_j.min_margin) <= 0)
+
+
+def test_rollout_matches_jax_f64():
+    before = solve_ocp_qp_fused.launches
+    final_t = _port_rollout("fused")
+    assert solve_ocp_qp_fused.launches == before      # CPU: the plain version
+    _assert_final_close(final_t, _jax_rollout()[3])
+
+
+@pytest.mark.parametrize("backend", ["torch", "riccati"])
+def test_rollout_solver_backends_match_jax_f64(backend):
+    before = riccati_solve_fused.launches
+    final_t = _port_rollout(backend)
+    assert riccati_solve_fused.launches == before     # CPU: the plain version
+    final_j = _jax_rollout()[3]
+    _assert_final_close(final_t, final_j)
+    assert not final_j.resets.any()
+
+
+@pytest.mark.parametrize("backend", ["torch", "riccati", "fused"])
+def test_status4_analogue_matches_jax_f64(backend):
+    """``init_guess_when_error``: rows whose 6-iteration solve misses the
+    fail tolerances reset their warm start and brake (compat_brake_bug);
+    the resets count, the braked plant and every outcome follow JAX."""
+    final_j = _jax_rollout(status4=True)[3]
+    resets = np.asarray(final_j.resets)
+    assert resets.sum() > 0 and (resets < TICKS).any()
+    _assert_final_close(_port_rollout(backend, status4=True), final_j)
 
 
 def test_run_scenario_batch_compat_rows_match_jax():
@@ -134,3 +175,32 @@ def test_cli_experiment_writes_csv_and_spec(tmp_path):
     assert spec["engine"] == "doa_mpc_tpu_torch" and spec["device"] == "cpu"
     assert spec["N_SOLV"] == 4 and spec["N_OBST"] == 2 and spec["QP_ITER"] == 2
     assert spec["scenario"] == "RANDOM" and spec["backend"] == "fused"
+
+
+def test_cli_experiment_riccati_backend_same_schema(tmp_path):
+    """``--backend riccati`` writes the same CSV and JSON schema as the
+    default backend, and its rows match the in-process run."""
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "doa_mpc_tpu_torch", "experiment", "--device", "cpu",
+           "--runs", "2", "--max-iter", "5", "--n-solv", "4", "--n-obst", "2",
+           "--qp-iter", "2", "--scenarios", "RANDOM", "--compat-rng", "--f64",
+           "--backend", "riccati", "--out", str(out)]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert res.returncode == 0, res.stderr
+    (csv,) = glob.glob(str(out / "*_experiment_data.csv"))
+    data = np.loadtxt(csv, delimiter=";")
+    assert data.shape == (2, 6) and np.isfinite(data).all()
+    (spec_path,) = glob.glob(str(out / "*_experiment_spec.json"))
+    spec = json.load(open(spec_path))
+    assert set(spec) == {
+        "slack", "random_move", "init_guess", "scenario", "TF", "N_SOLV", "N_OBST",
+        "QP_ITER", "engine", "integrator", "dtype", "compat_pred_bug", "compat_rng",
+        "fail_mu_tol", "fail_stat_tol", "backend", "device"}
+    assert spec["backend"] == "riccati" and spec["engine"] == "doa_mpc_tpu_torch"
+    assert spec["dtype"] == "float64" and spec["compat_rng"] is True
+    wspec = WorldSpec(tf=2.0, n_solv=4, n_obst=2, qp_iter=2)
+    want = run_scenario_batch(wspec, SolverOptions(qp_iter=2, integrator="rk4"), "RANDOM",
+                              n_runs=2, max_iter=5, dtype=torch.float64, backend="riccati",
+                              compat_rng=True, device="cpu")
+    np.testing.assert_allclose(data, want, rtol=0, atol=1e-12)

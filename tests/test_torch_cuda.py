@@ -1,4 +1,4 @@
-"""Kernel K1 on a CUDA card against its plain PyTorch version.
+"""Kernels K1 and K2 on a CUDA card against their plain PyTorch versions.
 
 These tests need a card and skip without one. They import no JAX, so they
 also run where only PyTorch is installed (tests/conftest.py imports JAX, so
@@ -14,8 +14,11 @@ import pytest
 import torch
 
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
+from doa_mpc_tpu_torch.ops import riccati_fused
 from doa_mpc_tpu_torch.ops.ip_fused import solve_ocp_qp_fused, solve_ocp_qp_fused_ref
+from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
 from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, OcpQp
+from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
 from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "hard_qps_f32.npz")
@@ -123,6 +126,95 @@ def test_main_path_on_cuda_goes_through_the_kernel(cuda):
     assert solve_ocp_qp_fused.launches == before + 15
     cpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=15,
                              compat_rng=True, device="cpu")
+    assert np.isfinite(gpu).all()
+    np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
+    np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
+
+
+def _lqrs(nb, N=20, seed=0):
+    """Seeded LQR batches with SPD costs (the recipe of
+    tests/test_riccati._random_lqr, batched), float64, in the order of
+    riccati_solve_fused's arguments."""
+    rng = np.random.default_rng(seed)
+    nx, nu = 5, 2
+    G = rng.standard_normal((nb, N + 1, nx, nx))
+    H = rng.standard_normal((nb, N, nu, nu))
+    return [torch.tensor(a) for a in (
+        G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(nx),              # Q
+        H @ np.swapaxes(H, -1, -2) + 0.5 * np.eye(nu),              # R
+        0.1 * rng.standard_normal((nb, N, nu, nx)),                 # S
+        0.9 * np.eye(nx) + 0.1 * rng.standard_normal((nb, N, nx, nx)),   # A
+        rng.standard_normal((nb, N, nx, nu)),                       # B
+        rng.standard_normal((nb, N + 1, nx)),                       # q
+        rng.standard_normal((nb, N, nu)),                           # r
+        rng.standard_normal((nb, N, nx)),                           # d
+        rng.standard_normal((nb, nx)))]                             # x0
+
+
+@pytest.mark.parametrize("nb", [1, 37, 512])
+def test_riccati_kernel_matches_plain(cuda, nb):
+    """f64: the kernel equals its plain version to 1e-9 relative. f32: it is
+    no further from the f64 plain output than the plain f32 version is
+    (2x margin; the two sum in different orders)."""
+    args64 = [a.to(cuda) for a in _lqrs(nb)]
+    before = riccati_solve_fused.launches
+    got64 = riccati_solve_fused(*args64)
+    torch.cuda.synchronize()
+    assert riccati_solve_fused.launches == before + 1
+    ref64 = riccati_solve_fused_ref(*args64)
+    for g, w in zip(got64, ref64):
+        assert g.dtype == torch.float64
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-9 * scale
+    args32 = [a.float() for a in args64]
+    got32 = riccati_solve_fused(*args32)
+    ref32 = riccati_solve_fused_ref(*args32)
+    for g, p, w in zip(got32, ref32, ref64):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        e_k = float((g.double() - w).abs().max())
+        e_p = float((p.double() - w).abs().max())
+        assert e_k <= 2 * e_p + 1e-6 * max(1.0, float(w.abs().max())), (e_k, e_p)
+
+
+def test_riccati_backend_launches_k2_and_never_its_plain_version(cuda, monkeypatch):
+    def plain_on_a_card(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(riccati_fused, "riccati_solve_fused_ref", plain_on_a_card)
+    qp = _to(_qps(256), cuda)
+    before = riccati_solve_fused.launches
+    sol = solve_ocp_qp(qp, iters=3, backend="riccati")
+    torch.cuda.synchronize()
+    assert riccati_solve_fused.launches == before + 2 * 3
+    ref = solve_ocp_qp(qp, iters=3, backend="torch")
+    assert riccati_solve_fused.launches == before + 2 * 3
+    for f in ("dx", "du", "s"):
+        torch.testing.assert_close(getattr(sol, f), getattr(ref, f), rtol=0, atol=5e-4)
+
+
+def test_riccati_kernel_rejects_what_it_does_not_take(cuda):
+    args = [a.to(cuda) for a in _lqrs(4, N=3)]
+    before = riccati_solve_fused.launches
+    with pytest.raises(TypeError, match="float32 or float64"):
+        riccati_solve_fused(*[a.half() for a in args])
+    with pytest.raises(TypeError, match="is torch.float32"):
+        riccati_solve_fused(*args[:5], args[5].float(), *args[6:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        riccati_solve_fused(*args[:8], args[8].cpu())
+    with pytest.raises(ValueError, match="nx=5"):
+        riccati_solve_fused(*[a[..., :4] if a.shape[-1] == 5 else a for a in args])
+    assert riccati_solve_fused.launches == before
+
+
+def test_main_path_riccati_on_cuda_goes_through_k2(cuda):
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=6)
+    opts = SolverOptions(qp_iter=6, integrator="rk4", compat_pred_bug=True)
+    before = riccati_solve_fused.launches
+    gpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=10,
+                             compat_rng=True, backend="riccati", device=cuda)
+    assert riccati_solve_fused.launches == before + 10 * 6 * 2
+    cpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=10,
+                             compat_rng=True, backend="riccati", device="cpu")
     assert np.isfinite(gpu).all()
     np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
     np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
