@@ -16,8 +16,9 @@ seed-matched Monte-Carlo cell ``20221031_215846`` (RANDOM, TF 2.0, N 20, M
 (K1's unicycle instantiation, phase 4) and the ``riccati`` backend (the
 interior-point solver with K2, phase 7). Each path runs with the launch
 counts set to 0 just before it and read just after. It times the control
-ticks and the kernels (device time from ``torch.profiler``; K1 for each
-instantiation at B=4096 and B=1), computes each kernel's bound from its
+ticks and the kernels (device time from CUDA events around launches queued
+behind a spin kernel; K1 for each instantiation and K2 at B=4096 and B=1),
+computes each kernel's bound from its
 bytes and its counted operations, and prints one line per phase.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -56,14 +57,14 @@ def _check(cond, msg):
         _die(msg)
 
 
-def _card():
+def card_name():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, reps, warmup=1):
+def time_ms(torch, fn, reps, warmup=1):
     """CUDA-event timing of ``reps`` calls of ``fn`` after ``warmup`` calls;
     returns ms per call."""
     for _ in range(warmup):
@@ -78,26 +79,49 @@ def _time_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
-def _kernel_device_ms(torch, fn, name, reps):
-    """Device time of the kernel whose name contains ``name``, per launch,
-    from ``torch.profiler`` over ``reps`` calls of ``fn`` (CUDA events around
-    back-to-back calls would time the host's enqueue of the wrapper)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def kernel_device_ms(torch, fn, reps):
+    """Device time per call of ``fn``, a call whose device work is one kernel
+    launch: CUDA events around ``reps`` calls queued behind a spin kernel, so
+    that the card runs them back to back and the host's enqueue of the
+    wrapper does not show. The spin is lengthened until it outlasts the
+    enqueue (an event recorded after it is still pending when the last call
+    is queued). (``torch.profiler`` saw as few as 6 of 50 launches of the
+    short kernel K2 on an H100.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cycles = 10**7
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spun.record()
+        start.record()
         for _ in range(reps):
             fn()
+        stop.record()
+        drained = spun.query()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in evs)
-    us = sum(getattr(e, "self_device_time_total", 0) for e in evs)
-    # the profiler may drop one event of a long run; the time per launch is
-    # that of the launches it saw
-    _check(reps - 1 <= count <= reps and us > 0,
-           f"profiler saw {count} of {reps} launches of {name} with {us} us of device time")
-    return us / 1e3 / count
+        if not drained:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    _die(f"the host did not queue {reps} calls within a spin of {cycles // 4} cycles")
+
+
+def seeded_lqrs(torch, dev, nb=B_MAIN, n=N, seed=0):
+    """A batch of LQRs with SPD costs at the solver's width, in float64 on
+    ``dev``: Q, R, S, A, B, q, r, d, x0 as kernel K2 takes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((nb, n + 1, 5, 5))
+    H = rng.standard_normal((nb, n, 2, 2))
+    return [torch.tensor(a, device=dev) for a in (
+        G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(5), H @ np.swapaxes(H, -1, -2) + 0.5 * np.eye(2),
+        0.1 * rng.standard_normal((nb, n, 2, 5)),
+        0.9 * np.eye(5) + 0.1 * rng.standard_normal((nb, n, 5, 5)),
+        rng.standard_normal((nb, n, 5, 2)), rng.standard_normal((nb, n + 1, 5)),
+        rng.standard_normal((nb, n, 2)), rng.standard_normal((nb, n, 5)),
+        rng.standard_normal((nb, 5)))]
 
 
 def _k1_bytes(nb, N, M, unicycle):
@@ -138,7 +162,7 @@ def main():
     from doa_mpc_tpu_torch.ops.ip_fused import (
         GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
     from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
-    from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp
+    from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp, normalize_cost
     from doa_mpc_tpu_torch.ops.op_count import OpCounter
     from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
     from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
@@ -148,7 +172,7 @@ def main():
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
 
     dev = torch.device("cuda", 0)
-    card = _card()
+    card = card_name()
     STRUCTURES = {"generic": GENERIC_STRUCTURE, "unicycle": UNICYCLE_QP_STRUCTURE}
 
     # ---- phase 1: device -------------------------------------------------
@@ -186,6 +210,15 @@ def main():
               f"of shared memory per scenario, {per_sm} scenarios resident per SM (occupancy "
               f"API), {-(-B_MAIN // (per_sm * sms))} wave(s) at B={B_MAIN} (N={N}, M={M})",
               flush=True)
+    k2_per_sm = riccati_fused.occupancy(N, torch.float32)
+    _check(k2_per_sm > 0, f"K2: occupancy API reports {k2_per_sm}")
+    _check(riccati_fused.workspace_values(B_MAIN, N, torch.float32) == 0,
+           f"K2: N={N} does not fit shared memory")
+    print(f"phase 2 K2 f32 (team of 16 lanes): "
+          f"{riccati_fused.smem_bytes(N, torch.float32) // 2} B of shared memory per "
+          f"scenario (stage ring, exchange buffers, scratch), {k2_per_sm} scenarios resident "
+          f"per SM (occupancy API), {-(-B_MAIN // (k2_per_sm * sms))} wave(s) at B={B_MAIN} "
+          f"(N={N})", flush=True)
 
     # ---- phase 3: kernel vs plain on real QPs ------------------------------
     spec = WorldSpec(tf=2.0, n_solv=N, n_obst=M, qp_iter=QP_ITER)
@@ -287,7 +320,7 @@ def main():
         def step():
             state[0] = tk(state[0])
 
-        return _time_ms(torch, step, reps=200, warmup=20)
+        return time_ms(torch, step, reps=200, warmup=20)
 
     ms_4096 = tick_ms(B_MAIN, "fused")
     ms_zero = tick_ms(B_MAIN, "zero")
@@ -300,22 +333,28 @@ def main():
     def k1_call(qpx, st=uni):
         return lambda: solve_ocp_qp_fused(qpx, iters=QP_ITER, structure=st)
 
-    # device time of the kernel alone (profiler) for each instantiation; the
-    # wrapper (normalize + launch) with CUDA events
-    k1_dev = {(sname, nb): _kernel_device_ms(torch, k1_call(qx, st), "ip_solve_kernel", 20)
+    def k1_kernel(qpx, st):
+        # the QP normalized once, as the wrapper would: the call's device work
+        # is then the kernel and the fill of kappa (B floats)
+        qn = OcpQp(*[a.contiguous() for a in normalize_cost(qpx)[0]])
+        return lambda: solve_ocp_qp_fused(qn, iters=QP_ITER, normalize=False, structure=st)
+
+    # device time of the kernel for each instantiation; the wrapper
+    # (normalize + launch) with CUDA events
+    k1_dev = {(sname, nb): kernel_device_ms(torch, k1_kernel(qx, st), 20)
               for sname, st in STRUCTURES.items() for nb, qx in ((B_MAIN, qp), (1, qp1))}
     k1_ms = k1_dev[("unicycle", B_MAIN)]
-    k1_call_ms = _time_ms(torch, k1_call(qp), reps=20, warmup=2)
-    k1_call_ms_1 = _time_ms(torch, k1_call(qp1), reps=20, warmup=2)
-    plain_ms = _time_ms(torch, lambda: solve_ocp_qp_fused_ref(qp, iters=QP_ITER), reps=3, warmup=1)
+    k1_call_ms = time_ms(torch, k1_call(qp), reps=20, warmup=2)
+    k1_call_ms_1 = time_ms(torch, k1_call(qp1), reps=20, warmup=2)
+    plain_ms = time_ms(torch, lambda: solve_ocp_qp_fused_ref(qp, iters=QP_ITER), reps=3, warmup=1)
     mem = torch.cuda.max_memory_allocated() / 2**20
     with open(os.path.join(OUT_DIR, "phase5_k1_device_ms.json"), "w") as f:
         json.dump({f"{s_}_B{b_}": v for (s_, b_), v in k1_dev.items()}, f, indent=1)
     print(f"phase 5 throughput: B={B_MAIN} tick {ms_4096:.4f} ms = "
           f"{B_MAIN / ms_4096 * 1e3:.0f} solves/s; glue-only (zero backend) tick "
           f"{ms_zero:.4f} ms | B=1 tick {ms_1:.4f} ms; glue-only {ms_zero_1:.4f} ms | "
-          f"K1 (N={N}, M={M}, {QP_ITER} iters, f32) device time per launch (profiler, 20 "
-          f"launches): "
+          f"K1 (N={N}, M={M}, {QP_ITER} iters, f32) device time per launch (CUDA events "
+          f"behind a spin, 20 launches, kappa fill included): "
           + "; ".join(f"{s_} B={b_} {v:.4f} ms" for (s_, b_), v in k1_dev.items())
           + f" | unicycle wrapper (normalize + launch, CUDA events) "
           f"{k1_call_ms:.4f} ms at B={B_MAIN}, {k1_call_ms_1:.4f} ms at B=1; plain version "
@@ -323,16 +362,7 @@ def main():
 
     # ---- phase 6: K2 against its plain version --------------------------------
     # (a) seeded LQR batches with SPD costs, at the solver's full width
-    rng = np.random.default_rng(0)
-    G = rng.standard_normal((B_MAIN, N + 1, 5, 5))
-    H = rng.standard_normal((B_MAIN, N, 2, 2))
-    lqr64 = [torch.tensor(a, device=dev) for a in (
-        G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(5), H @ np.swapaxes(H, -1, -2) + 0.5 * np.eye(2),
-        0.1 * rng.standard_normal((B_MAIN, N, 2, 5)),
-        0.9 * np.eye(5) + 0.1 * rng.standard_normal((B_MAIN, N, 5, 5)),
-        rng.standard_normal((B_MAIN, N, 5, 2)), rng.standard_normal((B_MAIN, N + 1, 5)),
-        rng.standard_normal((B_MAIN, N, 2)), rng.standard_normal((B_MAIN, N, 5)),
-        rng.standard_normal((B_MAIN, 5)))]
+    lqr64 = seeded_lqrs(torch, dev)
     lqr32 = [a.float() for a in lqr64]
     k64, p64 = riccati_solve_fused(*lqr64), riccati_solve_fused_ref(*lqr64)
     k32, p32 = riccati_solve_fused(*lqr32), riccati_solve_fused_ref(*lqr32)
@@ -345,6 +375,19 @@ def main():
            for k, p, w in zip(k32, p32, p64)]
     _check(all(np.isfinite(ek) and ek <= 2 * ep for ek, ep in e32),
            f"K2 f32 further from the f64 plain output than 2x the plain f32 version: {e32}")
+    # the single-robot case: B=1 in both dtypes
+    lqr64_1 = [a[:1].contiguous() for a in lqr64]
+    rel64_1 = max(float((k - p).abs().max()) / max(1.0, float(p.abs().max()))
+                  for k, p in zip(riccati_solve_fused(*lqr64_1), riccati_solve_fused_ref(*lqr64_1)))
+    _check(rel64_1 <= 1e-9, f"K2 f64 at B=1 vs plain f64: relative max|err| {rel64_1:.3e} > 1e-9")
+    lqr32_1 = [a.float() for a in lqr64_1]
+    e32_1 = [(float((k.double() - w).abs().max()), float((p.double() - w).abs().max()))
+             for k, p, w in zip(riccati_solve_fused(*lqr32_1), riccati_solve_fused_ref(*lqr32_1),
+                                riccati_solve_fused_ref(*lqr64_1))]
+    _check(all(np.isfinite(ek) and ek <= 2 * ep for ek, ep in e32_1),
+           f"K2 f32 at B=1 further from the f64 plain output than 2x plain f32: {e32_1}")
+    k2_work = {dt: riccati_fused.workspace_values(B_MAIN, N, dt)
+               for dt in (torch.float32, torch.float64)}
 
     # (b) real build_qp QPs: the riccati backend against the torch backend
     # after 1 iteration, then both in f32 against the converged f64 oracle
@@ -380,7 +423,11 @@ def main():
     print(f"phase 6 K2-vs-plain: LQR B={B_MAIN} N={N}: f64 rel max|err|={rel64:.3e} (limit "
           f"1e-9); f32 max|kernel-plain|={k2_err:.3e}, vs f64 plain kernel/plain "
           + ", ".join(f"{ek:.2e}/{ep:.2e}" for ek, ep in e32)
-          + f" | real QPs ticks {list(CAPTURE_TICKS)}: riccati vs torch backend 1-iter "
+          + f"; B=1: f64 rel {rel64_1:.3e}, f32 kernel/plain "
+          + ", ".join(f"{ek:.2e}/{ep:.2e}" for ek, ep in e32_1)
+          + f"; device-memory workspace at B={B_MAIN}: {k2_work[torch.float32]} values (f32), "
+          f"{k2_work[torch.float64]} (f64), 0 = scratch on chip | real QPs ticks "
+          f"{list(CAPTURE_TICKS)}: riccati vs torch backend 1-iter "
           f"max|err|={max_err_k2_qp:.3e} (atol 5e-4); f64 arbitration ok: "
           + "; ".join(f"{k} r_med={v['riccati_med']:.2e} t_med={v['torch_med']:.2e}"
                       for k, v in rows2.items())
@@ -423,21 +470,23 @@ def main():
         def step():
             state[0] = tk(state[0])
 
-        return _time_ms(torch, step, reps=SOLVER_REPS, warmup=SOLVER_WARMUP)
+        return time_ms(torch, step, reps=SOLVER_REPS, warmup=SOLVER_WARMUP)
 
     ms_r = solver_tick_ms(B_MAIN, "riccati")
     ms_t = solver_tick_ms(B_MAIN, "torch")
     ms_r1 = solver_tick_ms(1, "riccati")
-    k2_call_ms = _time_ms(torch, lambda: riccati_solve_fused(*lqr32), reps=50, warmup=3)
-    k2_ms = _kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr32), "riccati_kernel", 50)
-    k2_plain_ms = _time_ms(torch, lambda: riccati_solve_fused_ref(*lqr32), reps=5, warmup=1)
+    k2_call_ms = time_ms(torch, lambda: riccati_solve_fused(*lqr32), reps=50, warmup=3)
+    k2_ms = kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr32), 50)
+    k2_ms_1 = kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr32_1), 20)
+    k2_plain_ms = time_ms(torch, lambda: riccati_solve_fused_ref(*lqr32), reps=5, warmup=1)
     print(f"phase 8 solver backends: B={B_MAIN} tick riccati {ms_r:.4f} ms = "
           f"{B_MAIN / ms_r * 1e3:.0f} solves/s; torch {ms_t:.4f} ms = "
           f"{B_MAIN / ms_t * 1e3:.0f} solves/s; B=1 tick riccati {ms_r1:.4f} ms "
           f"({SOLVER_WARMUP} warm-up + {SOLVER_REPS} timed ticks, N={N}, M={M}, "
-          f"{QP_ITER} iters, f32) | K2 {k2_ms:.4f} ms/launch of device time (profiler); "
-          f"wrapper with batch-last packing {k2_call_ms:.4f} ms/call; plain version "
-          f"{k2_plain_ms:.3f} ms/call (B={B_MAIN}, N={N}, f32); card={card}", flush=True)
+          f"{QP_ITER} iters, f32) | K2 device time per launch "
+          f"(CUDA events behind a spin): {k2_ms:.4f} ms at B={B_MAIN} (50 launches), {k2_ms_1:.4f} ms at B=1 (20); "
+          f"wrapper (checks, outputs, launch; CUDA events) {k2_call_ms:.4f} ms/call; plain "
+          f"version {k2_plain_ms:.3f} ms/call (B={B_MAIN}, N={N}, f32); card={card}", flush=True)
 
     # bounds: each input byte read once and each output byte written once; the
     # operations the outputs need, counted from each kernel's own code on the

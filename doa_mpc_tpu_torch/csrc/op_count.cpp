@@ -234,11 +234,10 @@ extern "C" long long count_riccati(int N) {
                  fB = opc::leaves(Bm.data(), Bm.size()), fq = opc::leaves(q.data(), q.size()),
                  fr = opc::leaves(r.data(), r.size()), fd = opc::leaves(d.data(), d.size()),
                  fx = opc::leaves(x0.data(), x0.size());
-  std::vector<F> xo(n1 * 5), uo(N * 2), no(N * 5), work(rck::work_values(N));
+  std::vector<F> xo(n1 * 5), uo(N * 2), no(N * 5);
   rck::Params<F> p{fQ.data(), fR.data(), fS.data(), fA.data(), fB.data(), fq.data(), fr.data(),
-                   fd.data(), fx.data(), xo.data(), uo.data(), no.data(), work.data(),
-                   1, N, F(1e-6)};
-  rck::riccati_one<F>(p, 0);
+                   fd.data(), fx.data(), xo.data(), uo.data(), no.data(), 1, N, F(1e-6)};
+  rck::host_solve<F>(p, true);
   for (auto* v : {&xo, &uo, &no}) opc::roots(*v);
   return opc::g.count();
 }

@@ -130,10 +130,15 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     zero_x0 = torch.zeros((nb, nx), **kw)
 
     # ---- LQR backend ---------------------------------------------------------
+    if backend == "riccati":
+        # kernel K2 reads contiguous batch-first arrays in place: the dynamics
+        # are made so once per solve
+        S_c, A_c, B_c = qp.S.contiguous(), qp.A.contiguous(), qp.B.contiguous()
+
     def make_lqr(Qbar, Rbar):
         if backend == "riccati":
             def lqr(qbar, rbar, d):
-                return riccati_solve_fused(Qbar, Rbar, qp.S, qp.A, qp.B, qbar, rbar, d,
+                return riccati_solve_fused(Qbar, Rbar, S_c, A_c, B_c, qbar, rbar, d,
                                            zero_x0, reg=reg)
             return lqr
         fac = riccati_factorize(Qbar, Rbar, qp.S, qp.A, qp.B, reg=reg)

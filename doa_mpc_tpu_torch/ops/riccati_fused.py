@@ -6,8 +6,9 @@ the costate for a batch of LQR problems (nu = 2).
 
 - :func:`riccati_solve_fused` is the wrapper. On CUDA tensors it launches the
   hand-written kernel ``csrc/riccati.cu`` (built with nvcc for ``sm_90a`` at
-  first use, bound with ctypes; float32 and float64 entry points) and counts
-  the launch in ``riccati_solve_fused.launches``. On CPU tensors, and only
+  first use, bound with ctypes; float32 and float64 entry points) on the
+  contiguous batch-first inputs in place, and counts the launch in
+  ``riccati_solve_fused.launches``. On CPU tensors, and only
   then, it runs the plain version. There is no fallback from the kernel to
   the plain version.
 - :func:`riccati_solve_fused_ref` is the plain PyTorch version. It follows
@@ -23,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -103,20 +105,63 @@ def build_kernel() -> str:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(build_kernel())
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.riccati_f32.argtypes = [ptr] * 13 + [i32, i32, ctypes.c_float, ptr]
-    lib.riccati_f64.argtypes = [ptr] * 13 + [i32, i32, ctypes.c_double, ptr]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.riccati_f32.argtypes = [ptr] * 13 + [i32, i32, ctypes.c_float, i64, i64, ptr]
+    lib.riccati_f64.argtypes = [ptr] * 13 + [i32, i32, ctypes.c_double, i64, i64, ptr]
     lib.riccati_f32.restype = lib.riccati_f64.restype = i32
-    lib.riccati_work_values.argtypes = [i32]
-    lib.riccati_work_values.restype = ctypes.c_longlong
+    lib.riccati_plan.argtypes = [i32] * 3 + [ctypes.POINTER(i64)]
+    lib.riccati_plan.restype = i32
+    lib.riccati_smem_bytes.argtypes = [i32] * 2
+    lib.riccati_smem_bytes.restype = i64
     lib.riccati_error_string.argtypes = [i32]
     lib.riccati_error_string.restype = ctypes.c_char_p
     return lib
 
 
+class Plan(NamedTuple):
+    """How a launch runs (``riccati_plan`` in ``csrc/riccati.cu``)."""
+    blocks: int        # the grid, cut to balanced waves
+    bytes: int         # shared memory per block
+    work: int          # values of device-memory workspace; 0: scratch on chip
+    resident: int      # scenarios resident per SM (occupancy API)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, itemsize: int, nb: int, N: int) -> Plan:
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        rc = _library().riccati_plan(itemsize, nb, N, out)
+    if rc != 0:
+        raise RuntimeError(f"riccati_plan failed (N={N}, {itemsize}-byte values): "
+                           + _library().riccati_error_string(rc).decode())
+    return Plan(*out)
+
+
+def smem_bytes(N: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory that one block of the kernel (one warp: two scenarios,
+    each a team of 16 lanes) needs to hold its scenarios' stage ring, exchange buffers and
+    scratch on chip, as ``csrc/riccati.cu`` sizes them."""
+    return _library().riccati_smem_bytes(dtype.itemsize, N)
+
+
+def occupancy(N: int, dtype: torch.dtype = torch.float32) -> int:
+    """Scenarios resident per SM of the current card, as the CUDA occupancy
+    API reports them."""
+    return _plan(torch.cuda.current_device(), dtype.itemsize, 1, N).resident
+
+
+def workspace_values(nb: int, N: int, dtype: torch.dtype = torch.float32) -> int:
+    """Values of device memory a launch of ``nb`` scenarios on the current
+    card needs: 0 when a block's shared memory holds its scenarios' scratch,
+    else one slice per tile of the grid, which the kernel then uses in place
+    of shared memory."""
+    return _plan(torch.cuda.current_device(), dtype.itemsize, nb, N).work
+
+
 def _check_cuda_inputs(args: dict) -> None:
     """Raise on what the kernel does not take: mixed devices or dtypes, a
-    dtype other than float32/float64, nx != 5, nu != 2 or mismatched shapes."""
+    dtype other than float32/float64, nx != 5, nu != 2, mismatched shapes
+    or, after those, an input that is not contiguous."""
     dev, dtype = args["A"].device, args["A"].dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel K2 takes float32 or float64; A is {dtype}")
@@ -135,11 +180,10 @@ def _check_cuda_inputs(args: dict) -> None:
         if tuple(args[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(args[name].shape)}, expected {shape} "
                              f"(kernel K2 is built for nx={NX}, nu={NU})")
-
-
-def _batch_last(a: torch.Tensor, stages: int) -> torch.Tensor:
-    """(B, stages, ...) -> (stages, flattened stage block, B), contiguous."""
-    return a.reshape(a.shape[0], stages, -1).permute(1, 2, 0).contiguous()
+    for name, a in args.items():
+        if not a.is_contiguous():
+            raise ValueError(f"{name} is not contiguous: kernel K2 reads each scenario's "
+                             "field as one batch-first run")
 
 
 def riccati_solve_fused(Q, R, S, A, B, q, r, d, x0, reg: float = 1e-8):
@@ -151,34 +195,36 @@ def riccati_solve_fused(Q, R, S, A, B, q, r, d, x0, reg: float = 1e-8):
     -> (x (Bt, N+1, nx), u (Bt, N, nu), nu_dyn (Bt, N, nx)).
 
     CPU tensors run :func:`riccati_solve_fused_ref`. CUDA tensors (float32 or
-    float64, nx = 5, nu = 2) launch the kernel once and add one to
+    float64, nx = 5, nu = 2, contiguous) launch the kernel once, which reads
+    them in place and writes contiguous outputs, and add one to
     ``riccati_solve_fused.launches``; anything else raises."""
     dev = A.device
     if dev.type == "cpu":
         return riccati_solve_fused_ref(Q, R, S, A, B, q, r, d, x0, reg=reg)
     if dev.type != "cuda":
         raise ValueError(f"riccati_solve_fused: unsupported device {dev}")
-    args = dict(Q=Q, R=R, S=S, A=A, B=B, q=q, r=r, d=d, x0=x0)
-    _check_cuda_inputs(args)
+    ins = (Q, R, S, A, B, q, r, d, x0)
+    _check_cuda_inputs(dict(zip(("Q", "R", "S", "A", "B", "q", "r", "d", "x0"), ins)))
     nb, N, dtype = A.shape[0], A.shape[1], A.dtype
-    packed = [_batch_last(Q, N + 1), _batch_last(R, N), _batch_last(S, N),
-              _batch_last(A, N), _batch_last(B, N), _batch_last(q, N + 1),
-              _batch_last(r, N), _batch_last(d, N), _batch_last(x0, 1)]
     lib = _library()
     kw = dict(dtype=dtype, device=dev)
-    dx = torch.empty((N + 1, NX, nb), **kw)
-    du = torch.empty((N, NU, nb), **kw)
-    nu = torch.empty((N, NX, nb), **kw)
-    work = torch.empty((lib.riccati_work_values(N) * nb,), **kw)
+    dx = torch.empty((nb, N + 1, NX), **kw)
+    du = torch.empty((nb, N, NU), **kw)
+    nu = torch.empty((nb, N, NX), **kw)
     launch = lib.riccati_f32 if dtype == torch.float32 else lib.riccati_f64
+    pl = _plan(dev.index, dtype.itemsize, nb, N)
+    work = torch.empty((pl.work,), **kw) if pl.work else None
     with torch.cuda.device(dev):      # launch on the card that holds the data
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*[a.data_ptr() for a in packed + [dx, du, nu, work]],
-                    nb, N, float(reg), stream)
+        rc = launch(*[a.data_ptr() for a in ins + (dx, du, nu)],
+                    None if work is None else work.data_ptr(), nb, N, float(reg),
+                    pl.blocks, pl.bytes, stream)
     if rc != 0:
-        raise RuntimeError("riccati launch failed: " + lib.riccati_error_string(rc).decode())
+        raise RuntimeError(f"riccati launch failed (N={N}, {pl.bytes} B of shared memory per "
+                           f"block, {pl.work} values of workspace): "
+                           + lib.riccati_error_string(rc).decode())
     riccati_solve_fused.launches += 1
-    return dx.permute(2, 0, 1), du.permute(2, 0, 1), nu.permute(2, 0, 1)
+    return dx, du, nu
 
 
 riccati_solve_fused.launches = 0

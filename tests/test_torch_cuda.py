@@ -224,12 +224,10 @@ def _lqrs(nb, N=20, seed=0):
         rng.standard_normal((nb, nx)))]                             # x0
 
 
-@pytest.mark.parametrize("nb", [1, 37, 512])
-def test_riccati_kernel_matches_plain(cuda, nb):
+def _riccati_matches_plain(args64):
     """f64: the kernel equals its plain version to 1e-9 relative. f32: it is
     no further from the f64 plain output than the plain f32 version is
     (2x margin; the two sum in different orders)."""
-    args64 = [a.to(cuda) for a in _lqrs(nb)]
     before = riccati_solve_fused.launches
     got64 = riccati_solve_fused(*args64)
     torch.cuda.synchronize()
@@ -247,6 +245,54 @@ def test_riccati_kernel_matches_plain(cuda, nb):
         e_k = float((g.double() - w).abs().max())
         e_p = float((p.double() - w).abs().max())
         assert e_k <= 2 * e_p + 1e-6 * max(1.0, float(w.abs().max())), (e_k, e_p)
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 20])     # 2, 3: fewer stages than the ring holds
+@pytest.mark.parametrize("nb", [1, 37, 512, 4096])
+def test_riccati_kernel_matches_plain(cuda, nb, N):
+    args = [a.to(cuda) for a in _lqrs(nb, N=N)]
+    assert riccati_fused.workspace_values(nb, N, torch.float64) == 0
+    _riccati_matches_plain(args)
+
+
+def test_riccati_kernel_past_shared_memory_runs_from_device_memory(cuda):
+    """Past the horizon at which a block's shared memory holds its
+    scenarios' scratch (N=682 in f32, 336 in f64 at a team of 16), the same
+    body keeps the scratch in a device-memory workspace: one launch per
+    dtype, and the plain version's answer in f64 and f32."""
+    N, nb = 800, 37
+    for dtype in (torch.float32, torch.float64):
+        assert riccati_fused.smem_bytes(N, dtype) > 232448
+        assert riccati_fused.workspace_values(nb, N, dtype) > 0
+    _riccati_matches_plain([a.to(cuda) for a in _lqrs(nb, N=N, seed=4)])
+
+
+def test_riccati_kernel_refuses_non_contiguous_input(cuda):
+    """The kernel reads each scenario's field as one run: a strided view
+    raises before any launch and is not counted."""
+    args = [a.to(cuda) for a in _lqrs(4, N=3)]
+    before = riccati_solve_fused.launches
+    for i in (0, 3, 8):
+        bad = list(args)
+        bad[i] = args[i].mT.contiguous().mT if args[i].ndim > 2 else args[i].t().contiguous().t()
+        assert not bad[i].is_contiguous()
+        with pytest.raises(ValueError, match="not contiguous"):
+            riccati_solve_fused(*bad)
+    assert riccati_solve_fused.launches == before
+
+
+def test_riccati_kernel_plans_once_per_shape(cuda):
+    """The launch plan (grid, shared memory, workspace) is made on the first
+    call of a device, dtype, batch and horizon and reused after; a plan for a
+    larger horizon does not break the launches of a smaller one."""
+    riccati_fused._plan.cache_clear()
+    small, large = ([a.to(cuda) for a in _lqrs(37, N=N, seed=5)] for N in (3, 40))
+    for args in (large, small, large, small):
+        riccati_solve_fused(*args)
+    torch.cuda.synchronize()
+    info = riccati_fused._plan.cache_info()
+    assert (info.misses, info.hits) == (2, 2)
+    _riccati_matches_plain(small)
 
 
 def test_riccati_backend_launches_k2_and_never_its_plain_version(cuda, monkeypatch):

@@ -221,3 +221,44 @@ def test_rti_step_matches_jax_f64():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-8,
                                    err_msg=name)
     np.testing.assert_allclose(got_sol.mu.numpy(), np.asarray(want_sol.mu), rtol=1e-6)
+
+
+def _contiguity_spy(monkeypatch):
+    """Replace K2's wrapper inside ``ops/ip_qp.py`` by its plain version
+    behind a record of which arguments were not contiguous."""
+    from doa_mpc_tpu_torch.ops import ip_qp
+    from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused_ref
+
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append([i for i, a in enumerate(args) if not a.is_contiguous()])
+        return riccati_solve_fused_ref(*args, **kw)
+
+    monkeypatch.setattr(ip_qp, "riccati_solve_fused", spy)
+    return seen
+
+
+def test_riccati_backend_hands_k2_contiguous_arrays(monkeypatch):
+    """Kernel K2 reads its inputs in place and raises on a non-contiguous
+    one, so the solver makes S, A and B contiguous once per solve and its
+    per-iteration arrays come out contiguous: both on QPs whose dynamics are
+    transposed views and on the batched tick's own QPs."""
+    from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
+    from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
+
+    seen = _contiguity_spy(monkeypatch)
+    qp = _torch(_numpy_qps("soft"))
+    views = qp._replace(A=qp.A.mT.contiguous().mT, S=qp.S.mT.contiguous().mT,
+                        B=qp.B.mT.contiguous().mT)
+    assert not any(a.is_contiguous() for a in (views.A, views.S, views.B))
+    sol = solve_ocp_qp(views, iters=3, backend="riccati")
+    want = solve_ocp_qp(qp, iters=3, backend="riccati")
+    for g, w in zip(sol, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    spec = WorldSpec(tf=1.0, n_solv=10, n_obst=3, qp_iter=2)
+    opts = SolverOptions(qp_iter=2, integrator="rk4", compat_pred_bug=True)
+    run_scenario_batch(spec, opts, "RANDOM", n_runs=2, max_iter=2, compat_rng=True,
+                       backend="riccati", device="cpu")
+    assert len(seen) == 2 * 3 * 2 + 2 * 2 * 2
+    assert all(bad == [] for bad in seen), seen

@@ -8,7 +8,9 @@ K2 and its plain version).
   float64 at 1e-12 (one call: the interpreter takes about 25 s here).
 - The CUDA source ``csrc/riccati.cu`` compiled with g++ as host C++ (its
   body is ``__host__ __device__``) against the plain version in float64 at
-  1e-10. Its launches on a card are tested in ``tests/test_torch_cuda.py``.
+  1e-10, with its scratch laid out as each instantiation keeps it (shared
+  memory, device-memory workspace), and on a non-symmetric Q_N. Its launches
+  on a card are tested in ``tests/test_torch_cuda.py``.
 """
 
 import ctypes
@@ -166,10 +168,11 @@ def test_cuda_wrapper_validates_inputs():
 
 _HARNESS = r"""
 #include "riccati.cu"
-extern "C" void host_riccati_f64(const double** in, double** out, int B, int N, double reg) {
+extern "C" void host_riccati_f64(const double** in, double** out, int B, int N, double reg,
+                                 int on_chip) {
   rck::Params<double> p{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
-                        out[0], out[1], out[2], out[3], B, N, reg};
-  for (int b = 0; b < B; ++b) rck::riccati_one<double>(p, b);
+                        out[0], out[1], out[2], B, N, reg};
+  rck::host_solve<double>(p, on_chip != 0);
 }
 """
 
@@ -188,24 +191,70 @@ def host_kernel(tmp_path_factory):
                     "-o", str(lib), str(src)], check=True, timeout=120)
     so = ctypes.CDLL(str(lib))
     so.host_riccati_f64.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                                    + [ctypes.c_double])
-    so.riccati_work_values.argtypes = [ctypes.c_int]
-    so.riccati_work_values.restype = ctypes.c_longlong
+                                    + [ctypes.c_double, ctypes.c_int])
     return so
 
 
-@pytest.mark.parametrize("N", [1, 3, 20])
-def test_kernel_source_on_host_matches_plain_f64(host_kernel, N):
-    arrays = _t(_fused_args(_batch(5, N=N, seed=7)))
-    stages = (N + 1, N, N, N, N, N + 1, N, N, 1)
-    ins = [riccati_fused._batch_last(a, k) for a, k in zip(arrays, stages)]
+def _host_solve(host_kernel, arrays, storage, reg=1e-8):
+    """The kernel's body on the host, batch-first in and out, with its
+    scratch where the instantiation ``storage`` keeps it."""
+    nb, N = arrays[3].shape[:2]
+    ins = [a.contiguous() for a in arrays]
     f64 = dict(dtype=torch.float64)
-    outs = [torch.full((N + 1, 5, 5), np.nan, **f64), torch.full((N, 2, 5), np.nan, **f64),
-            torch.full((N, 5, 5), np.nan, **f64),
-            torch.full((host_kernel.riccati_work_values(N) * 5,), np.nan, **f64)]
+    outs = [torch.full((nb, N + 1, 5), np.nan, **f64), torch.full((nb, N, 2), np.nan, **f64),
+            torch.full((nb, N, 5), np.nan, **f64)]
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    host_kernel.host_riccati_f64(ptrs(ins), ptrs(outs), 5, N, 1e-8)
+    host_kernel.host_riccati_f64(ptrs(ins), ptrs(outs), nb, N, reg, int(storage == "on_chip"))
+    return outs
+
+
+STORAGE = pytest.mark.parametrize("storage", ["on_chip", "workspace"])
+
+
+@STORAGE
+@pytest.mark.parametrize("N", [1, 2, 3, 20])
+def test_kernel_source_on_host_matches_plain_f64(host_kernel, N, storage):
+    """The body, built by g++ as one lane per scenario with its scratch in
+    the tile's own arrays (the shared-memory instantiation) or in a
+    per-scenario workspace slice (the device-memory one), against the plain
+    version in float64. N = 1, 2, 3 have fewer stages than the input ring."""
+    arrays = _t(_fused_args(_batch(5, N=N, seed=7)))
     want = riccati_solve_fused_ref(*arrays, reg=1e-8)
-    for got, w in zip(outs[:3], want):
-        np.testing.assert_allclose(got.permute(2, 0, 1).numpy(), w.numpy(),
-                                   rtol=0, atol=1e-10)
+    for got, w in zip(_host_solve(host_kernel, arrays, storage), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=1e-10)
+
+
+@STORAGE
+def test_kernel_source_keeps_q_n_unsymmetrized(host_kernel, storage):
+    """P_N = Q_N as given: the last stage's gains and the costate of stage
+    N-1 use the non-symmetric Q_N, as the plain version (and the TPU kernel)
+    do; symmetrizing it would change the answer."""
+    N = 4
+    arrays = _t(_fused_args(_batch(3, N=N, seed=11)))
+    Q = arrays[0].clone()
+    skew = torch.tensor(np.random.default_rng(12).standard_normal((3, 5, 5)))
+    Q[:, N] += 0.5 * (skew - skew.mT)
+    arrays[0] = Q
+    want = riccati_solve_fused_ref(*arrays, reg=1e-8)
+    sym = riccati_solve_fused_ref(*[0.5 * (Q + Q.mT)] + arrays[1:], reg=1e-8)
+    assert float((sym[2] - want[2]).abs().max()) > 1e-3
+    for got, w in zip(_host_solve(host_kernel, arrays, storage), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=1e-10)
+
+
+def test_cuda_wrapper_checks_shape_and_dtype_before_contiguity():
+    """An input that is both non-contiguous and of the wrong dtype or shape
+    gets the dtype or shape message; one that is only non-contiguous is
+    refused for that."""
+    names = ("Q", "R", "S", "A", "B", "q", "r", "d", "x0")
+    args = dict(zip(names, _t(_fused_args(_batch(2, N=3)))))
+    strided = args["A"].mT.contiguous().mT
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="A is not contiguous"):
+        riccati_fused._check_cuda_inputs(dict(args, A=strided))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        riccati_fused._check_cuda_inputs(dict(args, A=strided.half()))
+    with pytest.raises(TypeError, match="q is torch.float32"):
+        riccati_fused._check_cuda_inputs(dict(args, A=strided, q=args["q"].float()))
+    with pytest.raises(ValueError, match="d has shape"):
+        riccati_fused._check_cuda_inputs(dict(args, A=strided, d=args["d"][:, :-1]))
