@@ -29,6 +29,7 @@ outside a checkout of the repository. Long diagnostics go to
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -38,6 +39,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 PARITY_CSV = os.path.join(REPO, "results", "parity_r5", "prod_rk4_qp6",
                           "20221031_215846_RANDOM_ours.csv")
+IRK_PARITY = os.path.join(REPO, "results", "parity_r5", "v1_nostatus4")
 HARD_QPS = os.path.join(REPO, "tests", "fixtures", "hard_qps_f32.npz")
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -45,6 +47,16 @@ B_MAIN, N, M, QP_ITER = 4096, 20, 5, 6
 CAPTURE_TICKS = (0, 10, 30)
 # tick timing of the solver backends: fewer ticks than phase 5, which times K1
 SOLVER_WARMUP, SOLVER_REPS = 5, 20
+
+
+_LAP = [time.time()]
+
+
+def lap():
+    """Seconds since the last call (the wall time of a phase)."""
+    now = time.time()
+    sec, _LAP[0] = now - _LAP[0], now
+    return sec
 
 
 def _die(msg):
@@ -136,6 +148,14 @@ def _k1_bytes(nb, N, M, unicycle):
     return 4 * nb * (ins + outs)
 
 
+def mcnemar_z(ours, ref):
+    """McNemar z on paired 0/1 outcomes: |b - c| / sqrt(b + c) over the
+    discordant seeds (0 when there are none)."""
+    b = int(((ours == 1) & (ref == 0)).sum())
+    c = int(((ours == 0) & (ref == 1)).sum())
+    return abs(b - c) / (b + c) ** 0.5 if b + c else 0.0
+
+
 def _bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the f32 rate."""
@@ -165,6 +185,7 @@ def main():
     from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp, normalize_cost
     from doa_mpc_tpu_torch.ops.op_count import OpCounter
     from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
+    from doa_mpc_tpu_torch.sim import evaluate, experiments
     from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
     from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
     from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
@@ -179,7 +200,7 @@ def main():
     nvcc_v = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True,
                             text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"phase 1 device: card={card} torch={torch.__version__} "
-          f"cuda={torch.version.cuda} nvcc={nvcc_v!r}", flush=True)
+          f"cuda={torch.version.cuda} nvcc={nvcc_v!r}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 2: build both kernels and the op counter at once ----------------
     def timed_build(build):
@@ -218,7 +239,7 @@ def main():
           f"{riccati_fused.smem_bytes(N, torch.float32) // 2} B of shared memory per "
           f"scenario (stage ring, exchange buffers, scratch), {k2_per_sm} scenarios resident "
           f"per SM (occupancy API), {-(-B_MAIN // (k2_per_sm * sms))} wave(s) at B={B_MAIN} "
-          f"(N={N})", flush=True)
+          f"(N={N}); wall {lap():.1f} s", flush=True)
 
     # ---- phase 3: kernel vs plain on real QPs ------------------------------
     spec = WorldSpec(tf=2.0, n_solv=N, n_obst=M, qp_iter=QP_ITER)
@@ -283,7 +304,7 @@ def main():
           + f" (atol 5e-4); du vs converged-f64 oracle ok at {QP_ITER} and 50 iterations: "
           + "; ".join(f"{k} k_med={v['kernel_med']:.2e} p_med={v['plain_med']:.2e}"
                       for k, v in rows.items())
-          + f"; hard_qps finite (generic); card={card}", flush=True)
+          + f"; hard_qps finite (generic); card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 4: main path, seed-matched cell 20221031_215846 -------------
     ref = np.loadtxt(PARITY_CSV, delimiter=";")
@@ -309,13 +330,13 @@ def main():
           f"hit={hit:.2f} (TPU CSV {ref_hit:.2f}) reached={reached:.2f} "
           f"(TPU CSV {ref_reached:.2f}); per-seed agreement hit={agree_hit:.2f} "
           f"reached={agree_reached:.2f}; K1 launches={launches} (unicycle); "
-          f"card={card}", flush=True)
+          f"card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 5: throughput ------------------------------------------------
-    def tick_ms(batch, backend):
+    def tick_ms(batch, backend, c=ctrl):
         gen = torch.Generator(device=dev).manual_seed(0)
-        tk = make_batched_tick(ctrl, goal, params, backend=backend, generator=gen)
-        state = [init_loop_state(ctrl, start, goal, batch_shape=(batch,), generator=gen)]
+        tk = make_batched_tick(c, goal, params, backend=backend, generator=gen)
+        state = [init_loop_state(c, start, goal, batch_shape=(batch,), generator=gen)]
 
         def step():
             state[0] = tk(state[0])
@@ -326,6 +347,12 @@ def main():
     ms_zero = tick_ms(B_MAIN, "zero")
     ms_1 = tick_ms(1, "fused")
     ms_zero_1 = tick_ms(1, "zero")
+    # the same ticks with the default integrator (IRK in the linearization
+    # and the plant)
+    ctrl_irk = make_rti_controller(spec, SolverOptions(qp_iter=QP_ITER, compat_pred_bug=True),
+                                   dtype=torch.float32, device=dev)
+    irk_ms = {(b_, be): tick_ms(b_, be, ctrl_irk)
+              for b_ in (B_MAIN, 1) for be in ("fused", "zero")}
     qp = captured[30]
     qp1 = OcpQp(*[a[:1].contiguous() for a in qp])
     uni = UNICYCLE_QP_STRUCTURE
@@ -333,11 +360,11 @@ def main():
     def k1_call(qpx, st=uni):
         return lambda: solve_ocp_qp_fused(qpx, iters=QP_ITER, structure=st)
 
-    def k1_kernel(qpx, st):
+    def k1_kernel(qpx, st, iters=QP_ITER):
         # the QP normalized once, as the wrapper would: the call's device work
         # is then the kernel and the fill of kappa (B floats)
         qn = OcpQp(*[a.contiguous() for a in normalize_cost(qpx)[0]])
-        return lambda: solve_ocp_qp_fused(qn, iters=QP_ITER, normalize=False, structure=st)
+        return lambda: solve_ocp_qp_fused(qn, iters=iters, normalize=False, structure=st)
 
     # device time of the kernel for each instantiation; the wrapper
     # (normalize + launch) with CUDA events
@@ -352,13 +379,18 @@ def main():
         json.dump({f"{s_}_B{b_}": v for (s_, b_), v in k1_dev.items()}, f, indent=1)
     print(f"phase 5 throughput: B={B_MAIN} tick {ms_4096:.4f} ms = "
           f"{B_MAIN / ms_4096 * 1e3:.0f} solves/s; glue-only (zero backend) tick "
-          f"{ms_zero:.4f} ms | B=1 tick {ms_1:.4f} ms; glue-only {ms_zero_1:.4f} ms | "
+          f"{ms_zero:.4f} ms | B=1 tick {ms_1:.4f} ms; glue-only {ms_zero_1:.4f} ms "
+          f"(rk4; 20 warm-up + 200 timed ticks each) | IRK: "
+          f"B={B_MAIN} tick {irk_ms[(B_MAIN, 'fused')]:.4f} ms = "
+          f"{B_MAIN / irk_ms[(B_MAIN, 'fused')] * 1e3:.0f} solves/s; glue-only "
+          f"{irk_ms[(B_MAIN, 'zero')]:.4f} ms | B=1 tick {irk_ms[(1, 'fused')]:.4f} ms; "
+          f"glue-only {irk_ms[(1, 'zero')]:.4f} ms | "
           f"K1 (N={N}, M={M}, {QP_ITER} iters, f32) device time per launch (CUDA events "
           f"behind a spin, 20 launches, kappa fill included): "
           + "; ".join(f"{s_} B={b_} {v:.4f} ms" for (s_, b_), v in k1_dev.items())
           + f" | unicycle wrapper (normalize + launch, CUDA events) "
           f"{k1_call_ms:.4f} ms at B={B_MAIN}, {k1_call_ms_1:.4f} ms at B=1; plain version "
-          f"{plain_ms:.3f} ms/solve | peak mem {mem:.0f} MiB; card={card}", flush=True)
+          f"{plain_ms:.3f} ms/solve | peak mem {mem:.0f} MiB; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 6: K2 against its plain version --------------------------------
     # (a) seeded LQR batches with SPD costs, at the solver's full width
@@ -431,7 +463,7 @@ def main():
           f"max|err|={max_err_k2_qp:.3e} (atol 5e-4); f64 arbitration ok: "
           + "; ".join(f"{k} r_med={v['riccati_med']:.2e} t_med={v['torch_med']:.2e}"
                       for k, v in rows2.items())
-          + f" | hard_qps 50 iters max mu {hard_mu:.2e}; card={card}", flush=True)
+          + f" | hard_qps 50 iters max mu {hard_mu:.2e}; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 7: the riccati path, seed-matched cell 20221031_215846 -------
     solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
@@ -459,7 +491,7 @@ def main():
           f"reached={(data_r[:, 1] == ref[:, 1]).mean():.2f}, with phase 4's fused run "
           f"hit={(data_r[:, 0] == data[:, 0]).mean():.2f} "
           f"reached={(data_r[:, 1] == data[:, 1]).mean():.2f} (reported, not checked); "
-          f"K2 launches={k2_launches}; card={card}", flush=True)
+          f"K2 launches={k2_launches}; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 8: solver-backend ticks and K2 time ---------------------------
     def solver_tick_ms(batch, backend):
@@ -486,7 +518,178 @@ def main():
           f"{QP_ITER} iters, f32) | K2 device time per launch "
           f"(CUDA events behind a spin): {k2_ms:.4f} ms at B={B_MAIN} (50 launches), {k2_ms_1:.4f} ms at B=1 (20); "
           f"wrapper (checks, outputs, launch; CUDA events) {k2_call_ms:.4f} ms/call; plain "
-          f"version {k2_plain_ms:.3f} ms/call (B={B_MAIN}, N={N}, f32); card={card}", flush=True)
+          f"version {k2_plain_ms:.3f} ms/call (B={B_MAIN}, N={N}, f32); card={card}; wall {lap():.1f} s", flush=True)
+
+    # ---- phase 9: the IRK seed-matched leg, all 10 cells of v1_nostatus4 ----
+    with open(os.path.join(IRK_PARITY, "summary.json")) as f:
+        leg = json.load(f)
+    _check(leg["integrator"] == "irk" and leg["backend"] == "fused" and not leg["status4"]
+           and not leg["f64"], "results/parity_r5/v1_nostatus4 is not the IRK fused f32 leg")
+    out9 = os.path.join(OUT_DIR, "phase9")
+    os.makedirs(out9, exist_ok=True)
+    rows9, ours9, refs9 = [], [], []
+    for c in leg["cells"]:
+        cell = f"{c['stamp']}_{c['scenario']}"
+        ref = np.loadtxt(os.path.join(IRK_PARITY, f"{cell}_ours.csv"), delimiter=";")
+        cspec = WorldSpec(tf=c["tf"], n_solv=c["n_solv"], n_obst=c["n_obst"],
+                          qp_iter=c["qp_iter"])
+        copts = SolverOptions(qp_iter=c["qp_iter"], integrator="irk", compat_pred_bug=True,
+                              init_guess_when_error=False, compat_brake_bug=False,
+                              fail_mu_tol=leg["fail_mu_tol"], fail_stat_tol=leg["fail_stat_tol"],
+                              init_guess="interpolate" if c["interpolate"] else "current")
+        solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+        t0 = time.time()
+        d = run_scenario_batch(cspec, copts, c["scenario"], n_runs=ref.shape[0], max_iter=400,
+                               dtype=torch.float32, backend="fused", compat_rng=True, device=dev)
+        wall_c = time.time() - t0
+        n_k1 = solve_ocp_qp_fused.launches
+        _check(n_k1 == 400 and riccati_solve_fused.launches == 0,
+               f"phase 9 {cell}: K1 launched {n_k1} times (K2 {riccati_solve_fused.launches}) "
+               f"in 400 ticks")
+        _check(d.shape == (ref.shape[0], 6) and np.isfinite(d).all(),
+               f"phase 9 {cell}: non-finite metric rows")
+        np.savetxt(os.path.join(out9, f"{cell}_h100.csv"), d, delimiter=";")
+        row = dict(cell=cell, tf=c["tf"], qp_iter=c["qp_iter"], interpolate=c["interpolate"],
+                   hit=d[:, 0].mean(), reached=d[:, 1].mean(), tpu_hit=ref[:, 0].mean(),
+                   tpu_reached=ref[:, 1].mean(), agree_hit=(d[:, 0] == ref[:, 0]).mean(),
+                   agree_reached=(d[:, 1] == ref[:, 1]).mean(),
+                   hit_mcnemar_z=mcnemar_z(d[:, 0], ref[:, 0]), wall_s=wall_c, launches=n_k1)
+        _check(abs(row["hit"] - row["tpu_hit"]) <= 0.10
+               and abs(row["reached"] - row["tpu_reached"]) <= 0.10,
+               f"phase 9 {cell}: rates off the TPU CSV: {row}")
+        rows9.append(row)
+        ours9.append(d)
+        refs9.append(ref)
+    ours9, refs9 = np.concatenate(ours9), np.concatenate(refs9)
+    agg = dict(hit=ours9[:, 0].mean(), reached=ours9[:, 1].mean(),
+               tpu_hit=refs9[:, 0].mean(), tpu_reached=refs9[:, 1].mean(),
+               agree_hit=(ours9[:, 0] == refs9[:, 0]).mean(),
+               agree_reached=(ours9[:, 1] == refs9[:, 1]).mean(),
+               hit_mcnemar_z=mcnemar_z(ours9[:, 0], refs9[:, 0]), seeds=len(ours9))
+    with open(os.path.join(out9, "phase9_cells.json"), "w") as f:
+        json.dump({"cells": rows9, "aggregate": agg}, f, indent=1)
+    _check(abs(agg["hit"] - agg["tpu_hit"]) <= 0.04
+           and abs(agg["reached"] - agg["tpu_reached"]) <= 0.04,
+           f"phase 9: aggregate rates off the TPU CSVs: {agg}")
+    print(f"phase 9 IRK seed-matched leg (v1_nostatus4: fused, 4-stage Gauss-Legendre IRK with 3 "
+          f"Newton iterations, status-4 off, compat_pred_bug, f32, 100 seeds x 400 ticks per "
+          f"cell): "
+          + "; ".join(f"{r['cell']} TF {r['tf']} qp {r['qp_iter']}"
+                      f"{' interp' if r['interpolate'] else ''} hit {r['hit']:.2f}/"
+                      f"{r['tpu_hit']:.2f} reached {r['reached']:.2f}/{r['tpu_reached']:.2f} "
+                      f"agree {r['agree_hit']:.2f}/{r['agree_reached']:.2f} z {r['hit_mcnemar_z']:.2f} "
+                      f"{r['wall_s']:.1f} s" for r in rows9)
+          + f" (H100/TPU CSV; per-seed agreement hit/reached; K1 launches 400 each) | "
+          f"{agg['seeds']} seeds: hit={agg['hit']:.3f} (TPU CSVs {agg['tpu_hit']:.3f}) "
+          f"reached={agg['reached']:.3f} (TPU CSVs {agg['tpu_reached']:.3f}); per-seed "
+          f"agreement hit={agg['agree_hit']:.3f} reached={agg['agree_reached']:.3f}; hit McNemar "
+          f"z={agg['hit_mcnemar_z']:.2f}; card={card}; wall {lap():.1f} s", flush=True)
+
+    # ---- phase 10: the sweeps' widest corners at full width ------------------
+    out10 = os.path.join(OUT_DIR, "phase10")
+    shutil.rmtree(out10, ignore_errors=True)
+    runs10 = []
+    run_batch = experiments.run_scenario_batch
+
+    def counted_batch(spec_, opts_, scenario, **kw):
+        """``run_scenario_batch`` with the launch counts set to 0 before each
+        (configuration, scenario) and read after it."""
+        solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+        t0 = time.time()
+        d = run_batch(spec_, opts_, scenario, **kw)
+        runs10.append(dict(N=spec_.n_solv, M=spec_.n_obst, qp_iter=opts_.qp_iter,
+                           integrator=opts_.integrator, scenario=scenario,
+                           k1=solve_ocp_qp_fused.launches, k2=riccati_solve_fused.launches,
+                           hit=d[:, 0].mean(), reached=d[:, 1].mean(), wall_s=time.time() - t0))
+        return d
+
+    experiments.run_scenario_batch = counted_batch
+    try:
+        experiments.run_horizon_sweep(tf_values=(0.5, 3.0), n_obst_values=(5, 30), n_runs=100,
+                                      out_dir=os.path.join(out10, "horizon"), verbose=False,
+                                      device=dev)
+        experiments.run_qp_iter_sweep(qp_iters=(150,), n_runs=100,
+                                      out_dir=os.path.join(out10, "qp_iter"), verbose=False,
+                                      device=dev)
+    finally:
+        experiments.run_scenario_batch = run_batch
+    _check(len(runs10) == 10, f"phase 10: {len(runs10)} runs, expected 4 x 2 + 1 x 2")
+    for r in runs10:
+        _check(r["k1"] == 400 and r["k2"] == 0 and r["integrator"] == "irk",
+               f"phase 10: {r}: expected 400 K1 launches with IRK")
+    ref_keys = {"slack", "random_move", "init_guess", "scenario", "TF", "N_SOLV", "N_OBST",
+                "QP_ITER"}
+    summary10 = []
+    for sub, n_pairs in (("horizon", 8), ("qp_iter", 2)):
+        pairs = evaluate.load_experiment_data(os.path.join(out10, sub))
+        _check(len(pairs) == n_pairs, f"phase 10 {sub}: {len(pairs)} CSV/JSON pairs, "
+                                      f"expected {n_pairs}")
+        for exp, d in pairs:
+            _check(ref_keys <= set(exp) and exp["engine"] == "doa_mpc_tpu_torch"
+                   and exp["integrator"] == "irk" and exp["backend"] == "fused",
+                   f"phase 10 {sub}: spec JSON {exp} lacks the reference schema")
+            _check(d.shape == (100, 6) and np.isfinite(d).all(),
+                   f"phase 10 {sub}: {exp}: metric rows not (100, 6) and finite")
+        summary10 += evaluate.summarize(os.path.join(out10, sub))
+    with open(os.path.join(out10, "phase10_runs.json"), "w") as f:
+        json.dump({"runs": runs10, "summarize": summary10}, f, indent=1)
+    smem30, per_sm30 = ip_fused.smem_bytes(30, 30, uni) // 2, ip_fused.occupancy(30, 30, uni)
+    _check(per_sm30 > 0 and ip_fused.workspace_floats(100, 30, 30, uni) == 0,
+           "K1 at N=30, M=30 does not run from shared memory")
+    print(f"phase 10 sweep corners (100 seeds x 400 ticks, IRK, fused, f32, RANDOM and EDGE; "
+          f"K1 launches 400 per run): "
+          + "; ".join(f"N={r['N']} M={r['M']} qp {r['qp_iter']} {r['scenario']} hit "
+                      f"{r['hit']:.2f} reached {r['reached']:.2f} {r['wall_s']:.1f} s"
+                      for r in runs10)
+          + f" | evaluate.summarize over {len(summary10)} pairs: "
+          + "; ".join(f"{r['scenario']} TF {r['TF']} M {r['N_OBST']} qp {r['QP_ITER']} "
+                      f"collision {r['collision']:.2f} reached {r['reached']:.2f} "
+                      f"median steps {r['median_steps']:.0f}" for r in summary10)
+          + f" | K1 unicycle at N=30, M=30: {smem30} B of shared memory per scenario, "
+          f"{per_sm30} scenarios resident per SM, {-(-100 // (per_sm30 * sms))} wave(s) at "
+          f"B=100; card={card}; wall {lap():.1f} s", flush=True)
+
+    # K1 at the sweeps' shapes, on QPs the IRK controller builds there (B=100,
+    # compat_rng RANDOM worlds, tick 10)
+    def sweep_qp(spec_, opts_, ticks=10, nb=100):
+        c_ = make_rti_controller(spec_, opts_, dtype=torch.float32, device=dev)
+        p_ = default_cost_params(spec_, dtype=torch.float32, device=dev)
+        obst_, noise_ = mt_experiment_batch(range(nb), spec_, "RANDOM", max_iter=ticks)
+        noise_ = torch.as_tensor(noise_, device=dev)
+        s_ = init_loop_state(c_, start, goal, batch_shape=(nb,), obst=obst_)
+        tk = make_batched_tick(c_, goal, p_)
+        for t in range(ticks):
+            s_ = tk(s_, noise=noise_[t])
+        pred_ = predict_trajectory(s_.obst, spec_, spec_.n_solv).movedim(0, 1)
+        return OcpQp(*[a.contiguous() for a in c_.build_qp(s_.rti, s_.x0, goal_t, pred_, p_)])
+
+    new_shapes = {}
+    for (n_, m_, it) in ((30, 30, 50), (20, 5, 150)):
+        qx = sweep_qp(WorldSpec(tf=n_ / 10, n_solv=n_, n_obst=m_, qp_iter=it),
+                      SolverOptions(qp_iter=it))
+        err = max(float((getattr(solve_ocp_qp_fused(qx, iters=1, structure=uni), f_)
+                         - getattr(solve_ocp_qp_fused_ref(qx, iters=1), f_)).abs().max())
+                  for f_ in ("dx", "du", "s"))
+        _check(np.isfinite(err) and err <= 5e-4,
+               f"K1 at N={n_}, M={m_}: kernel vs plain after 1 iteration differs by {err}")
+        ms_ = kernel_device_ms(torch, k1_kernel(qx, uni, it), 10)
+        plain_ = time_ms(torch, lambda: solve_ocp_qp_fused_ref(qx, iters=it), reps=1, warmup=1)
+        t0 = time.time()
+        ops_ = opc.ip_solve(qx, it, uni)
+        bytes_ = _k1_bytes(100, n_, m_, unicycle=True)
+        bound_, by_ = _bound(bytes_, ops_)
+        new_shapes[f"N{n_}_M{m_}_it{it}"] = dict(ms=ms_, plain_ms=plain_, err_1=err, ops=ops_,
+                                                 bytes=bytes_, bound_ms=bound_, bound_by=by_,
+                                                 count_s=time.time() - t0)
+    with open(os.path.join(out10, "k1_sweep_shapes.json"), "w") as f:
+        json.dump(new_shapes, f, indent=1)
+    print("phase 10 K1 at the sweeps' shapes (unicycle, B=100, f32, IRK controller QPs of "
+          "tick 10; device time by CUDA events behind a spin, 10 launches): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (plain version {v['plain_ms']:.1f} ms; 1-iter "
+                      f"max|err| {v['err_1']:.2e}), bound {v['bound_ms']:.5f} ms ({v['bound_by']}: "
+                      f"{v['bytes']} B, {v['ops']} operations counted in {v['count_s']:.1f} s)"
+                      for k, v in new_shapes.items())
+          + f"; card={card}; wall {lap():.1f} s", flush=True)
 
     # bounds: each input byte read once and each output byte written once; the
     # operations the outputs need, counted from each kernel's own code on the
@@ -501,7 +704,8 @@ def main():
     print(f"bounds: K1 unicycle {_k1_bytes(B_MAIN, N, M, True)} B and {k1_ops} operations "
           f"-> {k1_bound:.5f} ms ({k1_by}); K2 {k2_bytes} B and {k2_ops} operations -> "
           f"{k2_bound:.5f} ms ({k2_by}); against {HBM_BYTES_PER_S:.3g} B/s and "
-          f"{F32_OPS_PER_S:.3g} f32 op/s (K1 counted in {count_s:.1f} s); card={card}",
+          f"{F32_OPS_PER_S:.3g} f32 op/s (K1 counted in {count_s:.1f} s); card={card}; "
+          f"wall {lap():.1f} s",
           flush=True)
 
     kernels = [{"name": "ip_solve_kernel<Unicycle>", "route": "cuda",

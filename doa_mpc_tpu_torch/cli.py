@@ -1,8 +1,13 @@
 """Command-line interface of the PyTorch port.
 
     python -m doa_mpc_tpu_torch experiment   # the seeded Monte-Carlo
+    python -m doa_mpc_tpu_torch sweep        # TF x N_OBST grid
+    python -m doa_mpc_tpu_torch qp-sweep     # QP iteration-budget sweep
+    python -m doa_mpc_tpu_torch sim          # open-loop integrator rollout
+    python -m doa_mpc_tpu_torch evaluate     # aggregate rates + plots
 
-Only ``experiment`` is ported so far (ROADMAP item 9 lists the others).
+The JAX package's ``demo`` and ``bench`` commands are not ported yet
+(ROADMAP "Remaining work").
 """
 
 from __future__ import annotations
@@ -19,6 +24,19 @@ def _spec_args(p):
     p.add_argument("--f64", action="store_true")
 
 
+def _run_args(p):
+    p.add_argument("--backend", default="fused",
+                   choices=["fused", "torch", "riccati", "zero"],
+                   help="QP solve: 'fused' = the whole interior-point solve in "
+                        "CUDA kernel K1 (JAX 'fused'); 'torch' = the "
+                        "interior-point solver with the plain PyTorch Riccati "
+                        "sweep (JAX 'xla'); 'riccati' = the same solver with "
+                        "each Riccati solve in CUDA kernel K2 (JAX 'pallas'); "
+                        "'zero' skips the solve. On the CPU the kernels' plain "
+                        "PyTorch versions run")
+    p.add_argument("--device", default="cuda")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="doa_mpc_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -32,31 +50,84 @@ def main(argv=None):
     p.add_argument("--compat-rng", action="store_true",
                    help="replay the reference's exact MT19937 worlds and "
                         "obstacle noise per seed")
-    p.add_argument("--backend", default="fused",
-                   choices=["fused", "torch", "riccati", "zero"],
-                   help="QP solve: 'fused' = the whole interior-point solve in "
-                        "CUDA kernel K1 (JAX 'fused'); 'torch' = the "
-                        "interior-point solver with the plain PyTorch Riccati "
-                        "sweep (JAX 'xla'); 'riccati' = the same solver with "
-                        "each Riccati solve in CUDA kernel K2 (JAX 'pallas'); "
-                        "'zero' skips the solve. On the CPU the kernels' plain "
-                        "PyTorch versions run")
+    _run_args(p)
+
+    p = sub.add_parser("sweep", help="TF x N_OBST sweep")
+    p.add_argument("--runs", type=int, default=100)
+    p.add_argument("--out", default="test_data/sweep")
+    _run_args(p)
+
+    p = sub.add_parser("qp-sweep", help="QP_ITER sweep")
+    p.add_argument("--runs", type=int, default=100)
+    p.add_argument("--out", default="test_data/qp_sweep")
+    _run_args(p)
+
+    p = sub.add_parser("sim", help="open-loop integrator rollout (robot_sim.py)")
+    p.add_argument("--steps", type=int, default=200)
     p.add_argument("--device", default="cuda")
+
+    p = sub.add_parser("evaluate", help="aggregate rates + plots")
+    p.add_argument("--data", default="test_data/new")
+    p.add_argument("--out", default=".")
+    p.add_argument("--qp", action="store_true",
+                   help="QP_ITER plot instead of horizon plots")
 
     args = parser.parse_args(argv)
 
-    import torch
-    from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
-    from doa_mpc_tpu_torch.sim.experiments import run_experiment
+    if args.cmd == "experiment":
+        import torch
+        from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
+        from doa_mpc_tpu_torch.sim.experiments import run_experiment
 
-    spec = WorldSpec(tf=args.tf, n_solv=args.n_solv, n_obst=args.n_obst,
-                     qp_iter=args.qp_iter)
-    opts = SolverOptions(qp_iter=args.qp_iter, integrator=args.integrator)
-    dtype = torch.float64 if args.f64 else torch.float32
-    run_experiment(spec=spec, opts=opts, scenarios=args.scenarios,
-                   n_runs=args.runs, max_iter=args.max_iter, out_dir=args.out,
-                   dtype=dtype, backend=args.backend,
-                   compat_rng=args.compat_rng, device=args.device)
+        spec = WorldSpec(tf=args.tf, n_solv=args.n_solv, n_obst=args.n_obst,
+                         qp_iter=args.qp_iter)
+        opts = SolverOptions(qp_iter=args.qp_iter, integrator=args.integrator)
+        dtype = torch.float64 if args.f64 else torch.float32
+        run_experiment(spec=spec, opts=opts, scenarios=args.scenarios,
+                       n_runs=args.runs, max_iter=args.max_iter, out_dir=args.out,
+                       dtype=dtype, backend=args.backend,
+                       compat_rng=args.compat_rng, device=args.device)
+    elif args.cmd == "sweep":
+        from doa_mpc_tpu_torch.sim.experiments import run_horizon_sweep
+        run_horizon_sweep(n_runs=args.runs, out_dir=args.out, verbose=True,
+                          backend=args.backend, device=args.device)
+    elif args.cmd == "qp-sweep":
+        from doa_mpc_tpu_torch.sim.experiments import run_qp_iter_sweep
+        run_qp_iter_sweep(n_runs=args.runs, out_dir=args.out, verbose=True,
+                          backend=args.backend, device=args.device)
+    elif args.cmd == "sim":
+        _sim(args)
+    elif args.cmd == "evaluate":
+        from doa_mpc_tpu_torch.sim.evaluate import (
+            plot_graph, plot_graph_qp_solver, summarize)
+        for row in summarize(args.data):
+            print(row)
+        if args.qp:
+            plot_graph_qp_solver(args.data, args.out)
+        else:
+            plot_graph(args.data, args.out)
+
+
+def _sim(args):
+    """Open-loop rollout (robot_sim.py): a fixed control sequence through the
+    3-stage Radau IIA integrator with 3 Newton iterations, in float32 as the
+    JAX command runs it; prints the (x, y) trajectory."""
+    import numpy as np
+    import torch
+    from doa_mpc_tpu_torch.config import resolve_device
+    from doa_mpc_tpu_torch.models.unicycle import dynamics
+    from doa_mpc_tpu_torch.ops.integrators import irk_step
+
+    dev = resolve_device(args.device)
+    u_traj = np.zeros((args.steps, 2))
+    u_traj[:10] = [1.0, 0.5]
+    x = torch.tensor([0.0, 0.0, np.pi / 4, 0.0, 0.0], dtype=torch.float32, device=dev)
+    xs = [x]
+    for i in range(args.steps):
+        x = irk_step(dynamics, x, torch.as_tensor(u_traj[i], dtype=x.dtype, device=dev), 0.1,
+                     stages=3, newton_iter=3, tableau="radau_iia")
+        xs.append(x)
+    print(torch.stack(xs).cpu().numpy()[:, :2])
 
 
 if __name__ == "__main__":

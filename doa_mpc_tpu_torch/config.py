@@ -125,13 +125,9 @@ def default_cost_params(spec: WorldSpec, dtype=torch.float32,
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
-    """Static solver configuration (``doa_mpc_tpu.config.SolverOptions``).
-
-    Same fields and defaults. The port implements ``integrator='rk4'``
-    only; ``'irk'`` (the default, as in the JAX package) raises in
-    :func:`doa_mpc_tpu_torch.ops.integrators.make_integrator`, so callers
-    pass ``integrator='rk4'`` explicitly.
-    """
+    """Static solver configuration (``doa_mpc_tpu.config.SolverOptions``):
+    the same fields and defaults, the 4-stage Gauss-Legendre IRK with 3
+    Newton iterations among them."""
 
     integrator: str = "irk"
     irk_stages: int = 4

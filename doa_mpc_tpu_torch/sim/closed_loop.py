@@ -6,7 +6,8 @@ Per tick, for every scenario of the batch at once:
 2. linearize and assemble the QPs (``RtiController.build_qp``),
 3. solve all QPs in one call (kernel K1, ``ops/ip_fused.py``, or the
    interior-point solver of ``ops/ip_qp.py``),
-4. take the full step and apply u0 to the RK4 plant (with the status-4
+4. take the full step and apply u0 to the plant, stepped by the
+   controller's integrator (``ctrl.integrate``; with the status-4
    analogue on, rows whose solve failed reset their warm start first),
 5. step the obstacles with velocity noise,
 6. update min-margin / out-of-bounds / goal metrics, shift the warm start,

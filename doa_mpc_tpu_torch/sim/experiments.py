@@ -7,14 +7,19 @@ device. The artifacts keep the reference's schema:
   (hit, reached_goal, min_margin, final_dist, steps, out_of_bounds);
 - ``<stamp>_experiment_spec.json``: the configuration dictionary, plus
   provenance keys (``engine``, ``device``, ...).
+
+The reference's configuration sweeps (TF x N_OBST and the QP iteration
+budget) are loops over fresh ``WorldSpec``/``SolverOptions`` values, each
+written as one CSV/JSON pair per scenario.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from datetime import datetime
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
@@ -33,13 +38,17 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
                        n_runs: int = 100, max_iter: int = 400,
                        seed: int = 0, dtype=torch.float32,
                        params: CostParams | None = None,
-                       mesh=None, backend: str = "fused",
+                       mesh=None, start_goal_margin: float = 1.0,
+                       backend: str = "fused", return_state: bool = False,
                        compat_rng: bool = False, device="cuda"):
     """Run ``n_runs`` seeded scenarios in one batched rollout on ``device``.
 
-    Returns a (n_runs, 6) float64 metrics array in the reference CSV column
-    order. ``compat_rng`` replays the reference's MT19937 worlds and noise
-    (row i uses ``np.random.seed(i)``); otherwise worlds and noise come from
+    The robot starts at (X_MIN + margin, Y_MIN + margin) heading pi/4 and
+    aims at (X_MAX - margin, Y_MAX - margin), ``margin`` being
+    ``start_goal_margin``. Returns a (n_runs, 6) float64 metrics array in
+    the reference CSV column order, and with ``return_state`` also the final
+    ``LoopState``. ``compat_rng`` replays the reference's MT19937 worlds and
+    noise (row i uses ``np.random.seed(i)``); otherwise worlds and noise come from
     a ``torch.Generator`` seeded with ``seed``. ``backend`` is one of
     ``sim.closed_loop.BACKENDS`` ('fused', 'torch', 'riccati', 'zero')."""
     if mesh is not None:
@@ -47,7 +56,7 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
     dev = resolve_device(device)
     ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
     params = params or default_cost_params(spec, dtype=dtype, device=dev)
-    start, goal = robot_start_goal(spec)
+    start, goal = robot_start_goal(spec, margin=start_goal_margin)
 
     if compat_rng:
         from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
@@ -68,7 +77,21 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
         final = rollout(state)
 
     m = metrics_of(final)
-    return torch.stack([a.to(torch.float64) for a in m], dim=1).cpu().numpy()
+    data = torch.stack([a.to(torch.float64) for a in m], dim=1).cpu().numpy()
+    if return_state:
+        return data, final
+    return data
+
+
+def _fresh_stamp(out_dir: str) -> str:
+    """The reference's ``%Y%m%d_%H%M%S`` file stamp, not yet taken in
+    ``out_dir``: two short runs within one second would otherwise overwrite
+    each other's pair, so the second waits for the next second."""
+    while True:
+        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        if not os.path.exists(os.path.join(out_dir, f"{stamp}_experiment_spec.json")):
+            return stamp
+        time.sleep(0.05)
 
 
 def run_experiment(spec: WorldSpec | None = None,
@@ -76,21 +99,23 @@ def run_experiment(spec: WorldSpec | None = None,
                    scenarios: Sequence[str] = ("RANDOM", "EDGE"),
                    n_runs: int = 100, max_iter: int = 400,
                    out_dir: str = "test_data/new",
-                   dtype=torch.float32, backend: str = "fused",
-                   compat_rng: bool = False, device="cuda"):
-    """Per scenario, run the seeded batch and write CSV + spec JSON."""
+                   dtype=torch.float32, verbose: bool = True,
+                   backend: str = "fused", compat_rng: bool = False, device="cuda"):
+    """Per scenario, run the seeded batch and write CSV + spec JSON;
+    ``verbose`` prints each scenario's size and rates."""
     spec = spec or WorldSpec()
     opts = opts or SolverOptions(qp_iter=spec.qp_iter)
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     results = {}
     for s in scenarios:
-        print(f"{s}: solving {n_runs} scenarios (N={spec.n_solv}, "
-              f"M={spec.n_obst}, qp_iter={opts.qp_iter}) on {dev}")
+        if verbose:
+            print(f"{s}: solving {n_runs} scenarios (N={spec.n_solv}, "
+                  f"M={spec.n_obst}, qp_iter={opts.qp_iter}) on {dev}")
         data = run_scenario_batch(spec, opts, s, n_runs=n_runs, max_iter=max_iter,
                                   dtype=dtype, backend=backend,
                                   compat_rng=compat_rng, device=dev)
-        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        stamp = _fresh_stamp(out_dir)
         np.savetxt(os.path.join(out_dir, f"{stamp}_experiment_data.csv"), data,
                    delimiter=";")
         exp = {
@@ -113,8 +138,34 @@ def run_experiment(spec: WorldSpec | None = None,
         with open(os.path.join(out_dir, f"{stamp}_experiment_spec.json"), "w") as f:
             json.dump(exp, f)
         results[s] = data
-        print(f"  collision={data[:, 0].mean():.2%} "
-              f"reached={data[:, 1].mean():.2%} "
-              f"oob={data[:, 5].mean():.2%} "
-              f"median_steps={np.median(data[:, 4]):.0f}")
+        if verbose:
+            print(f"  collision={data[:, 0].mean():.2%} "
+                  f"reached={data[:, 1].mean():.2%} "
+                  f"oob={data[:, 5].mean():.2%} "
+                  f"median_steps={np.median(data[:, 4]):.0f}")
     return results
+
+
+def run_horizon_sweep(tf_values: Iterable[float] = (0.5, 1, 1.5, 2, 2.5, 3),
+                      n_obst_values: Iterable[int] = (5, 10, 15, 20, 25, 30),
+                      **kw):
+    """The reference's TF x N_OBST sweep: one :func:`run_experiment` per
+    point with N = int(tf * 10) and the default (IRK) solver options;
+    ``kw`` goes to :func:`run_experiment`."""
+    out = {}
+    for tf in tf_values:
+        for m in n_obst_values:
+            spec = WorldSpec(tf=float(tf), n_solv=int(tf * 10), n_obst=int(m))
+            out[(tf, m)] = run_experiment(spec=spec, **kw)
+    return out
+
+
+def run_qp_iter_sweep(qp_iters: Iterable[int] = (25, 50, 100, 150), **kw):
+    """The reference's QP iteration-budget sweep: one :func:`run_experiment`
+    per budget, default world and (IRK) solver options otherwise."""
+    out = {}
+    for it in qp_iters:
+        spec = WorldSpec(qp_iter=int(it))
+        opts = SolverOptions(qp_iter=int(it))
+        out[it] = run_experiment(spec=spec, opts=opts, **kw)
+    return out

@@ -134,9 +134,9 @@ def _predict_trajectory_scan(state: ObstacleState, spec, n: int) -> torch.Tensor
     return torch.stack(out, 0)
 
 
-def robot_start_goal(spec):
-    """Canonical start (X_MIN+1, Y_MIN+1, pi/4, 0, 0) and goal
-    (X_MAX-1, Y_MAX-1), as numpy arrays."""
-    start = np.array([spec.x_min + 1.0, spec.y_min + 1.0, np.pi / 4, 0.0, 0.0])
-    goal = np.array([spec.x_max - 1.0, spec.y_max - 1.0])
+def robot_start_goal(spec, margin: float = 1.0):
+    """Canonical start (X_MIN+margin, Y_MIN+margin, pi/4, 0, 0) and goal
+    (X_MAX-margin, Y_MAX-margin), as numpy arrays."""
+    start = np.array([spec.x_min + margin, spec.y_min + margin, np.pi / 4, 0.0, 0.0])
+    goal = np.array([spec.x_max - margin, spec.y_max - margin])
     return start, goal

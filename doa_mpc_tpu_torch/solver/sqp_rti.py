@@ -181,14 +181,20 @@ def make_rti_controller(spec: WorldSpec, options: SolverOptions | None = None,
     def integrate(x, u):
         return step(x, u, dt)
 
-    jac = vmap(jacfwd(integrate, argnums=(0, 1)))
+    def phi_twice(x, u):
+        phi = integrate(x, u)
+        return phi, phi
+
+    # Phi comes back as the aux output of the same call, so one integration
+    # (for IRK: one Newton solve) gives Phi, A and B
+    jac = vmap(jacfwd(phi_twice, argnums=(0, 1), has_aux=True))
 
     def lin(xs, us):
         """(Phi, dPhi/dx, dPhi/du) over (..., nx)/(..., nu) stage arrays."""
         lead = xs.shape[:-1]
         x, u = xs.reshape(-1, xs.shape[-1]), us.reshape(-1, us.shape[-1])
-        A, B = jac(x, u)
-        return (integrate(xs, us), A.reshape(lead + A.shape[1:]),
+        (A, B), phi = jac(x, u)
+        return (phi.reshape(xs.shape), A.reshape(lead + A.shape[1:]),
                 B.reshape(lead + B.shape[1:]))
 
     return RtiController(spec=spec, options=options, integrate=integrate,

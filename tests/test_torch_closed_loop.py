@@ -45,17 +45,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, M, B, TICKS = 6, 3, 4, 30
 
 
-def _specs(qp_iter=6, status4=False):
+def _specs(qp_iter=6, status4=False, integrator="rk4"):
     return (JSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
-            JOptions(qp_iter=qp_iter, integrator="rk4", init_guess_when_error=status4),
+            JOptions(qp_iter=qp_iter, integrator=integrator, init_guess_when_error=status4),
             WorldSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
-            SolverOptions(qp_iter=qp_iter, integrator="rk4", init_guess_when_error=status4))
+            SolverOptions(qp_iter=qp_iter, integrator=integrator,
+                          init_guess_when_error=status4))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_rollout(status4=False):
+def _jax_rollout(status4=False, integrator="rk4"):
     """Start state, noise and the JAX ``xla`` rollout's final state (numpy)."""
-    jspec, jopts, _, _ = _specs(status4=status4)
+    jspec, jopts, _, _ = _specs(status4=status4, integrator=integrator)
     jc = j_make(jspec, jopts, dtype=jnp.float64)
     start, goal = robot_start_goal(jspec)
     obst, noise = mt_experiment_batch(range(B), jspec, "RANDOM", max_iter=TICKS,
@@ -75,9 +76,9 @@ def _jax_rollout(status4=False):
             jax.tree.map(np.asarray, final_j))
 
 
-def _port_rollout(backend, status4=False):
-    st, noise, goal, _ = _jax_rollout(status4)
-    _, _, spec, opts = _specs(status4=status4)
+def _port_rollout(backend, status4=False, integrator="rk4"):
+    st, noise, goal, _ = _jax_rollout(status4, integrator)
+    _, _, spec, opts = _specs(status4=status4, integrator=integrator)
     tc = make_rti_controller(spec, opts, dtype=torch.float64, device="cpu")
     ts = interop.loop_state_from_numpy(st, "cpu", torch.float64)
     return make_batched_rollout(
@@ -130,6 +131,14 @@ def test_rollout_solver_backends_match_jax_f64(backend):
     final_j = _jax_rollout()[3]
     _assert_final_close(final_t, final_j)
     assert not final_j.resets.any()
+
+
+@pytest.mark.parametrize("backend", ["fused", "torch"])
+def test_rollout_irk_matches_jax_f64(backend):
+    """The default integrator (IRK) in both the linearization and the plant:
+    30 float64 ticks stay within 1e-6 of the JAX rollout."""
+    final_t = _port_rollout(backend, integrator="irk")
+    _assert_final_close(final_t, _jax_rollout(integrator="irk")[3])
 
 
 @pytest.mark.parametrize("backend", ["torch", "riccati", "fused"])

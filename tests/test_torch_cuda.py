@@ -337,3 +337,84 @@ def test_main_path_riccati_on_cuda_goes_through_k2(cuda):
     assert np.isfinite(gpu).all()
     np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
     np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
+
+
+@STRUCTURES
+def test_kernel_sweep_corner_matches_plain(cuda, structure):
+    """N=30, M=30 (the widest corner of the horizon sweep), B=100: one
+    launch, the plain version's answer after 1 iteration."""
+    qp = _to(_qps(100, N=30, M=30, seed=5, structure=structure), cuda)
+    assert ip_fused.workspace_floats(100, 30, 30, structure) == 0
+    before = solve_ocp_qp_fused.launches
+    sol = solve_ocp_qp_fused(qp, iters=1, structure=structure)
+    torch.cuda.synchronize()
+    assert solve_ocp_qp_fused.launches == before + 1
+    ref = solve_ocp_qp_fused_ref(qp, iters=1)
+    for f in ("dx", "du", "s"):
+        torch.testing.assert_close(getattr(sol, f), getattr(ref, f), rtol=0, atol=5e-4)
+
+
+@STRUCTURES
+@pytest.mark.parametrize("iters", [100, 150])
+def test_kernel_sweep_budgets_pass_f64_arbitration(cuda, structure, iters):
+    """The sweeps' largest IP budgets at N=30, M=30: the kernel's du is no
+    further from the converged float64 solve than the rule of chip_smoke.py
+    phase 3 allows against the plain f32 version (median <= max(2x plain,
+    1e-3), p95 <= max(2x plain, 1e-2))."""
+    qp = _to(_qps(100, N=30, M=30, seed=6, structure=structure), cuda)
+    truth = solve_ocp_qp_fused_ref(OcpQp(*[a.double() for a in qp]), iters=200).du
+    q = torch.tensor([0.5, 0.95], dtype=torch.float64, device=cuda)
+    e_k = (solve_ocp_qp_fused(qp, iters=iters, structure=structure).du.double()
+           - truth).abs().amax((1, 2))
+    e_p = (solve_ocp_qp_fused_ref(qp, iters=iters).du.double() - truth).abs().amax((1, 2))
+    (mk, pk), (mp, pp) = torch.quantile(e_k, q).tolist(), torch.quantile(e_p, q).tolist()
+    assert mk <= max(2 * mp, 1e-3) and pk <= max(2 * pp, 1e-2), (mk, pk, mp, pp)
+
+
+def test_irk_fused_tick_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
+    """With the default integrator (IRK) the fused main path launches K1
+    once per tick and never hands a CUDA tensor to the plain version."""
+    def plain_on_a_card(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=50)
+    opts = SolverOptions(qp_iter=50, compat_pred_bug=True)
+    assert opts.integrator == "irk"
+    before = solve_ocp_qp_fused.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(ip_fused, "solve_ocp_qp_fused_ref", plain_on_a_card)
+        gpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=12,
+                                 compat_rng=True, device=cuda)
+    assert solve_ocp_qp_fused.launches == before + 12
+    cpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=12,
+                             compat_rng=True, device="cpu")
+    assert np.isfinite(gpu).all()
+    np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
+    np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
+
+
+def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
+    """The f32 Newton iterations and LU solves on the card (TF32 off) land
+    within 1e-5 of the float64 step on the CPU, and so do the sensitivities
+    of the controller's linearization."""
+    from doa_mpc_tpu_torch.models.unicycle import dynamics
+    from doa_mpc_tpu_torch.ops.integrators import irk_step
+    from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4096, 5)) * np.array([3, 3, 1, 2, 1])
+    u = rng.standard_normal((4096, 2)) * 3
+    got = irk_step(dynamics, torch.tensor(x, dtype=torch.float32, device=cuda),
+                   torch.tensor(u, dtype=torch.float32, device=cuda), 0.1)
+    want = irk_step(dynamics, torch.tensor(x), torch.tensor(u), 0.1)
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
+    spec = WorldSpec()
+    xs, us = x[:4000].reshape(200, 20, 5), u[:4000].reshape(200, 20, 2)
+    lin32 = make_rti_controller(spec, dtype=torch.float32, device=cuda).lin(
+        torch.tensor(xs, dtype=torch.float32, device=cuda),
+        torch.tensor(us, dtype=torch.float32, device=cuda))
+    lin64 = make_rti_controller(spec, dtype=torch.float64, device="cpu").lin(
+        torch.tensor(xs), torch.tensor(us))
+    for g, w in zip(lin32, lin64):
+        np.testing.assert_allclose(g.double().cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)

@@ -36,7 +36,7 @@ def test_import_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(modules) >= 12
+    assert len(modules) >= 14
 
 
 def test_no_source_file_imports_jax():
@@ -64,11 +64,17 @@ def test_cuda_default_entry_points_raise_without_cuda():
 
 
 def test_irk_integrator_raises_not_implemented():
+    """IRK, the default integrator, is ported: the default options build a
+    controller, and only an integrator that neither package has raises."""
     from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        make_rti_controller(WorldSpec(), SolverOptions(), device="cpu")
+    ctrl = make_rti_controller(WorldSpec(), SolverOptions(), device="cpu")
+    assert ctrl.options.integrator == "irk"
+    x = ctrl.integrate(torch.zeros(2, 5, dtype=torch.float32), torch.ones(2, 2))
+    assert x.shape == (2, 5) and bool(torch.isfinite(x).all())
+    with pytest.raises(ValueError, match="unknown integrator"):
+        make_rti_controller(WorldSpec(), SolverOptions(integrator="euler"), device="cpu")
 
 
 def test_cpu_tensor_runs_plain_version_and_counts_no_launch():

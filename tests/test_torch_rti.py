@@ -1,6 +1,7 @@
 """RK4, the linearization and the batched QP assembly of the PyTorch port
 against the JAX package (``jax.jacfwd`` / ``vmap(build_qp)``) in float64 at
-atol 1e-12, with the native C++ ``rk4_sens`` as a third oracle."""
+atol 1e-12 (1e-10 with the IRK integrator), with the native C++
+``rk4_sens`` as a third oracle."""
 
 import numpy as np
 import jax
@@ -30,11 +31,11 @@ ATOL = 1e-12
 N, M, B = 6, 3, 4
 
 
-def _pair(init_guess="current"):
+def _pair(init_guess="current", integrator="rk4"):
     jspec = JSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=6)
-    jopts = JOptions(qp_iter=6, integrator="rk4", init_guess=init_guess)
+    jopts = JOptions(qp_iter=6, integrator=integrator, init_guess=init_guess)
     spec = WorldSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=6)
-    opts = SolverOptions(qp_iter=6, integrator="rk4", init_guess=init_guess)
+    opts = SolverOptions(qp_iter=6, integrator=integrator, init_guess=init_guess)
     return (j_make(jspec, jopts, dtype=jnp.float64), jspec,
             make_rti_controller(spec, opts, dtype=torch.float64, device="cpu"), spec)
 
@@ -76,10 +77,10 @@ def test_lin_matches_jacfwd_and_native():
         np.testing.assert_allclose(Bm.reshape(-1, 5, 2)[i].numpy(), B_n, rtol=0, atol=ATOL)
 
 
-def _qps(seed):
+def _qps(seed, integrator="rk4"):
     """The same QP assembly in both packages, on compat_rng worlds and a
     perturbed warm start."""
-    jc, jspec, tc, spec = _pair()
+    jc, jspec, tc, spec = _pair(integrator=integrator)
     params = j_params(jspec, dtype=jnp.float64)
     start, goal = robot_start_goal(jspec)
     obst, _ = mt_experiment_batch(range(seed, seed + B), jspec, "RANDOM", 1,
@@ -92,7 +93,7 @@ def _qps(seed):
         u_traj=st.rti.u_traj + rng.standard_normal(st.rti.u_traj.shape))
     x0 = st.x0 + 0.2 * rng.standard_normal(st.x0.shape)
     pred = jnp.moveaxis(j_predict(st.obst, jspec, N), 0, 1)
-    jqp = jax.vmap(lambda r, x, p: jc.build_qp(r, x, goal, p, params))(rti, x0, pred)
+    jqp = jax.jit(jax.vmap(lambda r, x, p: jc.build_qp(r, x, goal, p, params)))(rti, x0, pred)
     tqp = tc.build_qp(interop.rti_state_from_numpy(jax.tree.map(np.asarray, rti), "cpu",
                                                    torch.float64),
                       torch.tensor(np.asarray(x0)),
@@ -111,6 +112,24 @@ def test_build_qp_matches_jax(seed):
         assert got.shape == want.shape, name
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL * max(1.0, np.abs(want).max()),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 8])
+def test_build_qp_irk_matches_jax(seed):
+    """With the default integrator (4-stage Gauss-Legendre IRK, 3 Newton
+    iterations) the dynamics rows come from the IFT sensitivities. The x/y
+    columns of A stay exactly the identity, as UNICYCLE_QP_STRUCTURE
+    declares to kernel K1."""
+    jqp, tqp = _qps(seed, integrator="irk")
+    for name in OcpQp._fields:
+        want, got = np.asarray(getattr(jqp, name)), getattr(tqp, name).numpy()
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * max(1.0, np.abs(want).max()),
+                                   err_msg=name)
+    eye = np.eye(5)
+    for j in UNICYCLE_QP_STRUCTURE.a_unit_cols:
+        np.testing.assert_array_equal(tqp.A[..., :, j].numpy(),
+                                      np.broadcast_to(eye[:, j], tqp.A.shape[:-1]))
 
 
 def test_build_qp_satisfies_declared_unicycle_structure():
