@@ -14,7 +14,15 @@ version (K1 in both instantiations), and drives two paths through the
 seed-matched Monte-Carlo cell ``20221031_215846`` (RANDOM, TF 2.0, N 20, M
 5, 100 seeds x 400 ticks, rk4, 6 IP iterations, f32): the ``fused`` backend
 (K1's unicycle instantiation, phase 4) and the ``riccati`` backend (the
-interior-point solver with K2, phase 7). Each path runs with the launch
+interior-point solver with K2, phase 7). Phases 9-10 replay the IRK leg
+and the sweeps' corners through K1. Phase 11 runs the single-scenario path
+through K2 (``RtiController.rti_step``): the ``demo`` command's rollout
+(B=1, 20 IP iterations, 400 ticks) and the f64 parametric tick with
+per-row goals on the card against the CPU; phase 12 trains the RL layer
+(``SubgoalEnv`` at B=64 and DDPG at their defaults, 2 episodes of 10
+steps); in both, K2's plain version and the plain Riccati sweep raise if
+reached. Phase 13 replays the rk4 seed-matched legs ``prod_rk4_qp6`` and
+``prod_fixedbug`` through K1. Each path runs with the launch
 counts set to 0 just before it and read just after. It times the control
 ticks and the kernels (device time from CUDA events around launches queued
 behind a spin kernel; K1 for each instantiation and K2 at B=4096 and B=1),
@@ -27,12 +35,14 @@ outside a checkout of the repository. Long diagnostics go to
 ``chiprun_out/chip_smoke/``.
 """
 
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -45,8 +55,13 @@ HARD_QPS = os.path.join(REPO, "tests", "fixtures", "hard_qps_f32.npz")
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 B_MAIN, N, M, QP_ITER = 4096, 20, 5, 6
 CAPTURE_TICKS = (0, 10, 30)
-# tick timing of the solver backends: fewer ticks than phase 5, which times K1
+# tick timing: phase 5 (the fused and zero ticks) and phase 8 (the solver
+# backends)
+TICK_WARMUP, TICK_REPS = 10, 100
 SOLVER_WARMUP, SOLVER_REPS = 5, 20
+# the depth of phase 10's sweep runs: the ticks are host-bound, so the
+# script's time goes with ticks, not seeds
+TICKS10 = 100
 
 
 _LAP = [time.time()]
@@ -156,6 +171,26 @@ def mcnemar_z(ours, ref):
     return abs(b - c) / (b + c) ** 0.5 if b + c else 0.0
 
 
+@contextlib.contextmanager
+def plain_forbidden(ip_qp, riccati_fused):
+    """While the block runs, K2's plain version and the plain Riccati sweep
+    that ``ops/ip_qp.py`` calls raise: a path on the card that reached
+    either would be running on the CPU's formulas instead of the kernel."""
+    def forbidden(*a, **k):
+        raise AssertionError("the card path reached a plain (CPU) Riccati solve")
+
+    saved = [(riccati_fused, "riccati_solve_fused_ref"), (ip_qp, "riccati_factorize"),
+             (ip_qp, "riccati_solve")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, _ in saved:
+        setattr(mod, name, forbidden)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def _bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the f32 rate."""
@@ -178,15 +213,20 @@ def main():
 
     import numpy as np
     from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
-    from doa_mpc_tpu_torch.ops import cuda_build, ip_fused, riccati_fused
+    from doa_mpc_tpu_torch import cli
+    from doa_mpc_tpu_torch.ops import cuda_build, ip_fused, ip_qp, riccati_fused
     from doa_mpc_tpu_torch.ops.ip_fused import (
         GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
     from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
     from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp, normalize_cost
     from doa_mpc_tpu_torch.ops.op_count import OpCounter
     from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
+    from doa_mpc_tpu_torch.rl import train as rl_train
+    from doa_mpc_tpu_torch.rl.ddpg import DDPG, DDPGConfig, ReplayBuffer
+    from doa_mpc_tpu_torch.rl.env import SubgoalEnv
     from doa_mpc_tpu_torch.sim import evaluate, experiments
-    from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
+    from doa_mpc_tpu_torch.sim.closed_loop import (
+        init_loop_state, make_batched_tick, make_parametric_tick, metrics_of)
     from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
     from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
     from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
@@ -341,7 +381,7 @@ def main():
         def step():
             state[0] = tk(state[0])
 
-        return time_ms(torch, step, reps=200, warmup=20)
+        return time_ms(torch, step, reps=TICK_REPS, warmup=TICK_WARMUP)
 
     ms_4096 = tick_ms(B_MAIN, "fused")
     ms_zero = tick_ms(B_MAIN, "zero")
@@ -380,7 +420,7 @@ def main():
     print(f"phase 5 throughput: B={B_MAIN} tick {ms_4096:.4f} ms = "
           f"{B_MAIN / ms_4096 * 1e3:.0f} solves/s; glue-only (zero backend) tick "
           f"{ms_zero:.4f} ms | B=1 tick {ms_1:.4f} ms; glue-only {ms_zero_1:.4f} ms "
-          f"(rk4; 20 warm-up + 200 timed ticks each) | IRK: "
+          f"(rk4; {TICK_WARMUP} warm-up + {TICK_REPS} timed ticks each) | IRK: "
           f"B={B_MAIN} tick {irk_ms[(B_MAIN, 'fused')]:.4f} ms = "
           f"{B_MAIN / irk_ms[(B_MAIN, 'fused')] * 1e3:.0f} solves/s; glue-only "
           f"{irk_ms[(B_MAIN, 'zero')]:.4f} ms | B=1 tick {irk_ms[(1, 'fused')]:.4f} ms; "
@@ -606,17 +646,17 @@ def main():
     experiments.run_scenario_batch = counted_batch
     try:
         experiments.run_horizon_sweep(tf_values=(0.5, 3.0), n_obst_values=(5, 30), n_runs=100,
-                                      out_dir=os.path.join(out10, "horizon"), verbose=False,
-                                      device=dev)
-        experiments.run_qp_iter_sweep(qp_iters=(150,), n_runs=100,
+                                      max_iter=TICKS10, out_dir=os.path.join(out10, "horizon"),
+                                      verbose=False, device=dev)
+        experiments.run_qp_iter_sweep(qp_iters=(150,), n_runs=100, max_iter=TICKS10,
                                       out_dir=os.path.join(out10, "qp_iter"), verbose=False,
                                       device=dev)
     finally:
         experiments.run_scenario_batch = run_batch
     _check(len(runs10) == 10, f"phase 10: {len(runs10)} runs, expected 4 x 2 + 1 x 2")
     for r in runs10:
-        _check(r["k1"] == 400 and r["k2"] == 0 and r["integrator"] == "irk",
-               f"phase 10: {r}: expected 400 K1 launches with IRK")
+        _check(r["k1"] == TICKS10 and r["k2"] == 0 and r["integrator"] == "irk",
+               f"phase 10: {r}: expected {TICKS10} K1 launches with IRK")
     ref_keys = {"slack", "random_move", "init_guess", "scenario", "TF", "N_SOLV", "N_OBST",
                 "QP_ITER"}
     summary10 = []
@@ -636,8 +676,8 @@ def main():
     smem30, per_sm30 = ip_fused.smem_bytes(30, 30, uni) // 2, ip_fused.occupancy(30, 30, uni)
     _check(per_sm30 > 0 and ip_fused.workspace_floats(100, 30, 30, uni) == 0,
            "K1 at N=30, M=30 does not run from shared memory")
-    print(f"phase 10 sweep corners (100 seeds x 400 ticks, IRK, fused, f32, RANDOM and EDGE; "
-          f"K1 launches 400 per run): "
+    print(f"phase 10 sweep corners (100 seeds x {TICKS10} ticks, IRK, fused, f32, RANDOM and "
+          f"EDGE; K1 launches {TICKS10} per run): "
           + "; ".join(f"N={r['N']} M={r['M']} qp {r['qp_iter']} {r['scenario']} hit "
                       f"{r['hit']:.2f} reached {r['reached']:.2f} {r['wall_s']:.1f} s"
                       for r in runs10)
@@ -691,6 +731,215 @@ def main():
                       for k, v in new_shapes.items())
           + f"; card={card}; wall {lap():.1f} s", flush=True)
 
+    # ---- phase 11: the single-scenario path and demo, K2 through rti_step ----
+    # the demo command's own configuration (B=1, N=20, M=5, 20 IP iterations,
+    # rk4, f32, 400 ticks, seed 1), without its GIF; K2's plain version and
+    # the plain Riccati sweep raise if a CUDA tensor reaches them
+    demo_args = cli.build_parser().parse_args(["demo", "--device", "cuda"])
+    n_demo, it_demo = demo_args.max_iter, demo_args.qp_iter
+    solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+    t0 = time.time()
+    with plain_forbidden(ip_qp, riccati_fused):
+        dspec, _, _, dfin, (dxs, dobs, dpred) = cli.demo_rollout(demo_args)
+        torch.cuda.synchronize()
+    wall_demo = time.time() - t0
+    k2_demo, k1_demo = riccati_solve_fused.launches, solve_ocp_qp_fused.launches
+    _check(k2_demo == 2 * it_demo * n_demo and k1_demo == 0,
+           f"phase 11 demo: K2 launched {k2_demo} times (expected {2 * it_demo * n_demo}), "
+           f"K1 {k1_demo} times (expected 0)")
+    _check(dxs.shape == (n_demo, 1, 5) and dobs.shape == (n_demo, 1, dspec.n_obst, 2)
+           and dpred.shape == (n_demo, 1, dspec.n_solv + 1, 5)
+           and all(bool(torch.isfinite(a).all()) for a in (dxs, dobs, dpred)),
+           "phase 11 demo: collected arrays not finite or of the wrong shape")
+    dm = metrics_of(dfin)
+
+    # the parametric tick in f64 (K2's f64 entry) on the card and on the CPU
+    # from the same state: B=8, eight goals, noise-free, 10 ticks
+    spec64 = WorldSpec(tf=2.0, n_solv=N, n_obst=M, qp_iter=it_demo)
+    opts64 = SolverOptions(qp_iter=it_demo, integrator="rk4")
+    obst8, _ = mt_experiment_batch(range(8), spec64, "RANDOM", max_iter=1, dtype=np.float64)
+    goals8 = np.stack([np.linspace(-6.0, 6.0, 8), np.linspace(6.0, -3.0, 8)], -1)
+    runs64 = {}
+    for where in (dev, torch.device("cpu")):
+        c64 = make_rti_controller(spec64, opts64, dtype=torch.float64, device=where)
+        p64 = default_cost_params(spec64, dtype=torch.float64, device=where)
+        s64 = init_loop_state(c64, start, goal, batch_shape=(8,), obst=obst8)
+        g64 = torch.as_tensor(goals8, dtype=torch.float64, device=where)
+        tk64 = make_parametric_tick(c64, random_move=False)
+        riccati_solve_fused.launches = 0
+        t0 = time.time()
+        for _ in range(10):
+            s64 = tk64(s64, g64, p64)
+        runs64[where.type] = (s64, riccati_solve_fused.launches, time.time() - t0)
+    err64 = float((runs64["cuda"][0].x0.cpu() - runs64["cpu"][0].x0).abs().max())
+    _check(runs64["cuda"][1] == 2 * it_demo * 10 and runs64["cpu"][1] == 0,
+           f"phase 11 f64: K2 launches {runs64['cuda'][1]} on the card, {runs64['cpu'][1]} on CPU")
+    _check(err64 <= 1e-7, f"phase 11 f64: card vs CPU x0 max|err| {err64:.3e} > 1e-7")
+    lqr64_8 = [a[:8].contiguous() for a in lqr64]
+    rel64_8 = max(float((k - p).abs().max()) / max(1.0, float(p.abs().max()))
+                  for k, p in zip(riccati_solve_fused(*lqr64_8), riccati_solve_fused_ref(*lqr64_8)))
+    _check(rel64_8 <= 1e-9, f"K2 f64 at B=8 vs plain f64: relative max|err| {rel64_8:.3e}")
+    print(f"phase 11 single-scenario path: demo rollout (B=1, N={dspec.n_solv}, M={dspec.n_obst}, "
+          f"{it_demo} IP iters, rk4, f32, seed {demo_args.seed}) {n_demo} ticks in {wall_demo:.1f} s = "
+          f"{wall_demo / n_demo * 1e3:.2f} ms/tick; reached={bool(dm.reached[0])} "
+          f"hit={bool(dm.hit[0])} min_margin={float(dm.min_margin[0]):.3f} "
+          f"steps={int(dm.steps[0])}; K2 launches={k2_demo} (2 x {it_demo} x {n_demo}), K1 0; "
+          f"no plain-version call | f64 parametric tick B=8, per-row goals, noise-free, 10 ticks: "
+          f"card vs CPU x0 max|err|={err64:.3e} (limit 1e-7), {runs64['cuda'][2]:.2f} s on the "
+          f"card ({runs64['cuda'][1]} K2 f64 launches), {runs64['cpu'][2]:.2f} s on the CPU; K2 "
+          f"f64 at B=8 rel max|err| {rel64_8:.3e}; card={card}; wall {lap():.1f} s", flush=True)
+
+    # ---- phase 12: the RL layer at full width -----------------------------------
+    # SubgoalEnv at its defaults (B=64, N=20, M=5, 10 IP iterations, rk4, f32,
+    # 10 ticks per step), DDPG at its defaults (hidden 128x128, buffer 100,000,
+    # batch 256); only the depth is cut, to 2 episodes of 10 steps
+    env = SubgoalEnv(max_steps=10, device=dev)
+    agent = DDPG(DDPGConfig(obs_dim=env.obs_dim, act_dim=env.act_dim), device=dev)
+    step_ms, update_ms, bufs = [], [], []
+
+    def timed(fn, out):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+            return res
+        return call
+
+    def recording_create(*a, **k):
+        bufs.append(ReplayBuffer.create(*a, **k))
+        return bufs[-1]
+
+    env.step, agent.update = timed(env.step, step_ms), timed(agent.update, update_ms)
+    rl_train.ReplayBuffer = types.SimpleNamespace(create=recording_create)
+    solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+    t0 = time.time()
+    try:
+        with plain_forbidden(ip_qp, riccati_fused):
+            _, hist = rl_train.train(env, agent, 2, seed=0, verbose=False)
+    finally:
+        rl_train.ReplayBuffer = ReplayBuffer
+    wall_rl = time.time() - t0
+    k2_rl, k1_rl = riccati_solve_fused.launches, solve_ocp_qp_fused.launches
+    steps_rl = len(step_ms)
+    ticks_rl = steps_rl * env.k_ticks
+    _check(len(hist) == 2 and all(np.isfinite([h["reward"], h["reached"]]).all() for h in hist),
+           f"phase 12: history {hist}")
+    _check(k2_rl == 2 * env.opts.qp_iter * ticks_rl and k1_rl == 0,
+           f"phase 12: K2 launched {k2_rl} times in {ticks_rl} ticks, K1 {k1_rl} times")
+    _check(len(bufs) == 1 and bufs[0].size == env.batch * steps_rl,
+           f"phase 12: the buffer holds {bufs[0].size if bufs else None} rows after "
+           f"{steps_rl} steps of {env.batch}")
+    _check(all(bool(torch.isfinite(p).all()) for p in agent.actor.parameters()),
+           "phase 12: non-finite actor weights")
+    lqr_rl = [a[:env.batch].contiguous().float() for a in lqr64]
+    e_rl = [(float((k.double() - w).abs().max()), float((p.double() - w).abs().max()))
+            for k, p, w in zip(riccati_solve_fused(*lqr_rl), riccati_solve_fused_ref(*lqr_rl),
+                               riccati_solve_fused_ref(*[a[:env.batch] for a in lqr64]))]
+    _check(all(np.isfinite(ek) and ek <= 2 * ep for ek, ep in e_rl),
+           f"K2 f32 at B={env.batch} further from the f64 plain output than 2x plain f32: {e_rl}")
+    k2_ms_rl = kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr_rl), 20)
+    print(f"phase 12 RL layer: train() 2 episodes, SubgoalEnv B={env.batch} N={env.spec.n_solv} "
+          f"M={env.spec.n_obst} {env.opts.qp_iter} IP iters rk4 f32 k_ticks={env.k_ticks}, "
+          f"DDPG hidden {agent.cfg.hidden} buffer {agent.cfg.buffer_size} batch "
+          f"{agent.cfg.batch_size}: {wall_rl:.1f} s wall, {steps_rl} env steps ({ticks_rl} ticks) "
+          f"at {np.mean(step_ms):.1f} ms/step (median {np.median(step_ms):.1f}), "
+          f"{len(update_ms)} updates at {np.mean(update_ms):.2f} ms/update (median "
+          f"{np.median(update_ms):.2f}); history "
+          + "; ".join(f"ep {h['episode']} reward {h['reward']:.2f} reached {h['reached']:.2f}"
+                      for h in hist)
+          + f"; K2 launches={k2_rl} (2 x {env.opts.qp_iter} x {ticks_rl}), K1 0; buffer "
+          f"{bufs[0].size} rows | K2 f32 at B={env.batch} kernel/plain vs f64 "
+          + ", ".join(f"{ek:.2e}/{ep:.2e}" for ek, ep in e_rl)
+          + f", device time {k2_ms_rl:.4f} ms (CUDA events behind a spin, 20 launches); "
+          f"card={card}; wall {lap():.1f} s", flush=True)
+
+    # ---- phase 13: the rk4 seed-matched legs through K1 -------------------------
+    # prod_rk4_qp6 (the forecast typo kept) and prod_fixedbug (fixed): rk4,
+    # fused, 6 IP iterations, status-4 off, f32, each cell's own TF, N, M and
+    # initial guess; phase 4 replayed cell 20221031_215846 of prod_rk4_qp6
+    out13 = os.path.join(OUT_DIR, "phase13")
+    os.makedirs(out13, exist_ok=True)
+    legs13, rows13 = {}, []
+    # phase 4 ran cell 20221031_215846 of prod_rk4_qp6 (RANDOM, TF 2, current)
+    runs13 = {("prod_rk4_qp6", "RANDOM", 2.0, N, M, False):
+              (data, launches, wall, "20221031_215846_RANDOM (phase 4)")}
+    for leg, pred_bug in (("prod_rk4_qp6", True), ("prod_fixedbug", False)):
+        ldir = os.path.join(REPO, "results", "parity_r5", leg)
+        with open(os.path.join(ldir, "summary.json")) as f:
+            summ = json.load(f)
+        _check(summ["integrator"] == "rk4" and summ["backend"] == "fused" and not summ["status4"]
+               and not summ["f64"], f"results/parity_r5/{leg} is not an rk4 fused f32 leg")
+        ours, refs = [], []
+        for c in summ["cells"]:
+            cell = f"{c['stamp']}_{c['scenario']}"
+            ref = np.loadtxt(os.path.join(ldir, f"{cell}_ours.csv"), delimiter=";")
+            # the cells differ in the reference's IP budget, which this leg
+            # fixes at 6, so cells with the same scenario, TF, N, M and
+            # initial guess are one configuration and share one run
+            key = (leg, c["scenario"], c["tf"], c["n_solv"], c["n_obst"], c["interpolate"])
+            if key not in runs13:
+                cspec = WorldSpec(tf=c["tf"], n_solv=c["n_solv"], n_obst=c["n_obst"],
+                                  qp_iter=QP_ITER)
+                copts = SolverOptions(qp_iter=QP_ITER, integrator="rk4",
+                                      compat_pred_bug=pred_bug,
+                                      init_guess="interpolate" if c["interpolate"] else "current")
+                solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+                t0 = time.time()
+                d = run_scenario_batch(cspec, copts, c["scenario"], n_runs=ref.shape[0],
+                                       max_iter=400, dtype=torch.float32, backend="fused",
+                                       compat_rng=True, device=dev)
+                n_k1 = solve_ocp_qp_fused.launches
+                _check(n_k1 == 400 and riccati_solve_fused.launches == 0,
+                       f"phase 13 {leg} {cell}: K1 launched {n_k1} times "
+                       f"(K2 {riccati_solve_fused.launches}) in 400 ticks")
+                runs13[key] = (d, n_k1, time.time() - t0, cell)
+            d, n_k1, wall_c, run_cell = runs13[key]
+            _check(d.shape == (ref.shape[0], 6) and np.isfinite(d).all(),
+                   f"phase 13 {leg} {cell}: non-finite metric rows")
+            np.savetxt(os.path.join(out13, f"{leg}_{cell}_h100.csv"), d, delimiter=";")
+            row = dict(leg=leg, cell=cell, tf=c["tf"], interpolate=c["interpolate"],
+                       hit=d[:, 0].mean(), reached=d[:, 1].mean(), tpu_hit=ref[:, 0].mean(),
+                       tpu_reached=ref[:, 1].mean(), agree_hit=(d[:, 0] == ref[:, 0]).mean(),
+                       agree_reached=(d[:, 1] == ref[:, 1]).mean(),
+                       hit_mcnemar_z=mcnemar_z(d[:, 0], ref[:, 0]), wall_s=wall_c, launches=n_k1,
+                       run=run_cell)
+            _check(abs(row["hit"] - row["tpu_hit"]) <= 0.10
+                   and abs(row["reached"] - row["tpu_reached"]) <= 0.10,
+                   f"phase 13 {leg} {cell}: rates off the TPU CSV: {row}")
+            rows13.append(row)
+            ours.append(d)
+            refs.append(ref)
+        ours, refs = np.concatenate(ours), np.concatenate(refs)
+        legs13[leg] = dict(hit=ours[:, 0].mean(), reached=ours[:, 1].mean(),
+                           tpu_hit=refs[:, 0].mean(), tpu_reached=refs[:, 1].mean(),
+                           agree_hit=(ours[:, 0] == refs[:, 0]).mean(),
+                           agree_reached=(ours[:, 1] == refs[:, 1]).mean(),
+                           hit_mcnemar_z=mcnemar_z(ours[:, 0], refs[:, 0]), seeds=len(ours))
+        a = legs13[leg]
+        _check(abs(a["hit"] - a["tpu_hit"]) <= 0.04 and abs(a["reached"] - a["tpu_reached"]) <= 0.04,
+               f"phase 13 {leg}: aggregate rates off the TPU CSVs: {a}")
+    with open(os.path.join(out13, "phase13_cells.json"), "w") as f:
+        json.dump({"cells": rows13, "legs": legs13}, f, indent=1)
+    print(f"phase 13 rk4 seed-matched legs (fused, 6 IP iters, status-4 off, f32, 100 seeds x "
+          f"400 ticks per run, K1 launches 400 per run; {len(runs13)} runs for {len(rows13)} "
+          f"cells: cells of one configuration share its run, and 20221031_215846 of "
+          f"prod_rk4_qp6 is phase 4's): "
+          + "; ".join(f"{r['leg']} {r['cell']} TF {r['tf']}{' interp' if r['interpolate'] else ''}"
+                      f" hit {r['hit']:.2f}/{r['tpu_hit']:.2f} reached {r['reached']:.2f}/"
+                      f"{r['tpu_reached']:.2f} agree {r['agree_hit']:.2f}/{r['agree_reached']:.2f}"
+                      f" z {r['hit_mcnemar_z']:.2f} "
+                      + (f"{r['wall_s']:.1f} s" if r["run"] == r["cell"] else f"(run of {r['run']})")
+                      for r in rows13)
+          + " (H100/TPU CSV) | "
+          + "; ".join(f"{leg} {a['seeds']} seeds: hit={a['hit']:.3f} (TPU CSVs "
+                      f"{a['tpu_hit']:.3f}) reached={a['reached']:.3f} (TPU CSVs "
+                      f"{a['tpu_reached']:.3f}); agreement hit={a['agree_hit']:.3f} "
+                      f"reached={a['agree_reached']:.3f}; hit McNemar z={a['hit_mcnemar_z']:.2f}"
+                      for leg, a in legs13.items())
+          + f"; card={card}; wall {lap():.1f} s", flush=True)
+
     # bounds: each input byte read once and each output byte written once; the
     # operations the outputs need, counted from each kernel's own code on the
     # inputs it was timed on
@@ -714,10 +963,10 @@ def main():
                 "launches": launches, "max_abs_err": max(max_err_1.values()),
                 "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
                 "library_ms": None},
-               {"name": "riccati_f32", "route": "cuda",
+               {"name": "riccati_f32 (rti_step: the demo rollout)", "route": "cuda",
                 "source": "doa_mpc_tpu_torch/csrc/riccati.cu",
                 "replaces": "doa_mpc_tpu/ops/riccati_pallas.py:104",
-                "launches": k2_launches, "max_abs_err": k2_err,
+                "launches": k2_demo, "max_abs_err": k2_err,
                 "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
                 "library_ms": None}]
     print(card, flush=True)

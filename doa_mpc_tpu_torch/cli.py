@@ -3,11 +3,11 @@
     python -m doa_mpc_tpu_torch experiment   # the seeded Monte-Carlo
     python -m doa_mpc_tpu_torch sweep        # TF x N_OBST grid
     python -m doa_mpc_tpu_torch qp-sweep     # QP iteration-budget sweep
+    python -m doa_mpc_tpu_torch demo         # seeded visual run -> GIF
     python -m doa_mpc_tpu_torch sim          # open-loop integrator rollout
     python -m doa_mpc_tpu_torch evaluate     # aggregate rates + plots
 
-The JAX package's ``demo`` and ``bench`` commands are not ported yet
-(ROADMAP "Remaining work").
+The JAX package's ``bench`` command is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _run_args(p):
     p.add_argument("--device", default="cuda")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="doa_mpc_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -62,6 +62,14 @@ def main(argv=None):
     p.add_argument("--out", default="test_data/qp_sweep")
     _run_args(p)
 
+    p = sub.add_parser("demo", help="seeded visual run -> GIF (demo.py)")
+    _spec_args(p)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--scenario", default="RANDOM")
+    p.add_argument("--max-iter", type=int, default=400)
+    p.add_argument("--gif", default="demo.gif")
+    p.add_argument("--device", default="cuda")
+
     p = sub.add_parser("sim", help="open-loop integrator rollout (robot_sim.py)")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--device", default="cuda")
@@ -71,8 +79,11 @@ def main(argv=None):
     p.add_argument("--out", default=".")
     p.add_argument("--qp", action="store_true",
                    help="QP_ITER plot instead of horizon plots")
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     if args.cmd == "experiment":
         import torch
@@ -95,6 +106,8 @@ def main(argv=None):
         from doa_mpc_tpu_torch.sim.experiments import run_qp_iter_sweep
         run_qp_iter_sweep(n_runs=args.runs, out_dir=args.out, verbose=True,
                           backend=args.backend, device=args.device)
+    elif args.cmd == "demo":
+        _demo(args)
     elif args.cmd == "sim":
         _sim(args)
     elif args.cmd == "evaluate":
@@ -106,6 +119,54 @@ def main(argv=None):
             plot_graph_qp_solver(args.data, args.out)
         else:
             plot_graph(args.data, args.out)
+
+
+def demo_rollout(args):
+    """The ``demo`` command's run without its GIF: one robot (B=1) in a world
+    drawn from a generator seeded with ``--seed``, ``--max-iter`` ticks of
+    :func:`sim.closed_loop.make_rollout` with ``collect`` (its solves in
+    kernel K2 on the card). Returns (spec, start, goal, final state,
+    (x0, obst_pos, pred_x) stacks)."""
+    import torch
+    from doa_mpc_tpu_torch.config import (
+        SolverOptions, WorldSpec, default_cost_params, resolve_device)
+    from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_rollout
+    from doa_mpc_tpu_torch.sim.obstacles import robot_start_goal
+    from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+
+    dev = resolve_device(args.device)
+    spec = WorldSpec(tf=args.tf, n_solv=args.n_solv, n_obst=args.n_obst,
+                     qp_iter=args.qp_iter)
+    opts = SolverOptions(qp_iter=args.qp_iter, integrator=args.integrator)
+    dtype = torch.float64 if args.f64 else torch.float32
+    ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
+    params = default_cost_params(spec, dtype=dtype, device=dev)
+    start, goal = robot_start_goal(spec)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    st = init_loop_state(ctrl, start, goal, args.scenario, batch_shape=(1,), generator=gen)
+    rollout = make_rollout(ctrl, goal, params, max_iter=args.max_iter, collect=True,
+                           generator=gen)
+    final, traj = rollout(st)
+    return spec, start, goal, final, traj
+
+
+def _demo(args):
+    """Seeded visual run: prints the outcome, writes the GIF up to the
+    tick that reached the goal."""
+    from doa_mpc_tpu_torch.sim.closed_loop import metrics_of
+    from doa_mpc_tpu_torch.utils.viz import VisDynamicRobotEnv
+
+    spec, start, goal, fin, (xs, obs, pred) = demo_rollout(args)
+    m = metrics_of(fin)
+    steps = int(m.steps[0])
+    print(f"reached={bool(m.reached[0])} hit={bool(m.hit[0])} "
+          f"min_margin={float(m.min_margin[0]):.3f} steps={steps}")
+    t = steps + 1
+    vis = VisDynamicRobotEnv(spec, xs[:t, 0].cpu().numpy(), obs[:t, 0].cpu().numpy(),
+                             pred_traj=pred[:t, 0, :, :2].cpu().numpy(),
+                             start=start, goal=goal)
+    vis.save_animation(args.gif, every=2)
+    print(f"wrote {args.gif}")
 
 
 def _sim(args):

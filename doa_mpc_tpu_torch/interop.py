@@ -15,6 +15,7 @@ import torch
 
 from doa_mpc_tpu_torch.config import CostParams, resolve_device
 from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp
+from doa_mpc_tpu_torch.rl.env import EnvState
 from doa_mpc_tpu_torch.sim.closed_loop import LoopState
 from doa_mpc_tpu_torch.sim.obstacles import ObstacleState
 from doa_mpc_tpu_torch.solver.sqp_rti import RtiState
@@ -64,3 +65,28 @@ def loop_state_from_numpy(s, device="cuda", dtype=torch.float32) -> LoopState:
     return LoopState(rti=rti_state_from_numpy(_get(s, "rti"), dev, dtype),
                      obst=obstacle_state_from_numpy(_get(s, "obst"), dev, dtype),
                      **fields)
+
+
+def env_state_from_numpy(s, device="cuda", dtype=torch.float32) -> EnvState:
+    """The JAX ``rl.env.EnvState``; its loop through
+    :func:`loop_state_from_numpy`."""
+    dev = resolve_device(device)
+    return EnvState(loop=loop_state_from_numpy(_get(s, "loop"), dev, dtype),
+                    **{f: _tensor(_get(s, f), dev, dtype) for f in EnvState._fields[1:]})
+
+
+def ddpg_params_from_numpy(flax_params, module: torch.nn.Module) -> torch.nn.Module:
+    """Load a flax ``{'params': {'_MLP_0': {'Dense_i': {'kernel', 'bias'}}}}``
+    tree (numpy or array leaves) into the port's ``Actor`` or ``Critic``, in
+    place, and return the module. A flax kernel is (in, out), an
+    ``nn.Linear`` weight (out, in), so each kernel is transposed."""
+    dense = flax_params["params"]["_MLP_0"]
+    layers = module.mlp.layers
+    if len(dense) != len(layers):
+        raise ValueError(f"{len(dense)} Dense layers for {len(layers)} nn.Linear layers")
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            d = dense[f"Dense_{i}"]
+            layer.weight.copy_(torch.as_tensor(np.array(d["kernel"]).T))
+            layer.bias.copy_(torch.as_tensor(np.array(d["bias"])))
+    return module

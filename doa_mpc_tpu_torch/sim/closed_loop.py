@@ -9,10 +9,18 @@ Per tick, for every scenario of the batch at once:
 4. take the full step and apply u0 to the plant, stepped by the
    controller's integrator (``ctrl.integrate``; with the status-4
    analogue on, rows whose solve failed reset their warm start first),
-5. step the obstacles with velocity noise,
+5. step the obstacles, with velocity noise unless ``random_move`` is off,
 6. update min-margin / out-of-bounds / goal metrics, shift the warm start,
    and freeze rows that are done (every field of the state, as the
    reference's ``break`` does).
+
+Two families of ticks do this. The batched tick (``make_batched_tick``,
+the Monte-Carlo main path) closes over one goal and chooses its solver
+backend. The parametric tick (``make_parametric_tick``, with ``make_tick``
+and ``make_rollout`` on top) is the counterpart of the JAX package's
+single-scenario tick under ``vmap``: it takes the goal and the cost
+parameters per call, shared or per row, and solves through
+``RtiController.rti_step`` (kernel K2 on the card).
 
 The reference keeps simulating after a collision; ``hit`` is judged from
 ``min_margin <= 0`` afterwards. The status-4 reset analogue
@@ -103,8 +111,58 @@ def _freeze(done, old, new):
     return torch.where(done.reshape(done.shape + (1,) * (new.ndim - 1)), old, new)
 
 
+def _advance(ctrl: RtiController, st: LoopState, rti_new: RtiState, u0, sol, goal,
+             random_move: bool, noise, generator):
+    """The tick after the solve, shared by the batched and the parametric
+    tick: the status-4 analogue, the plant, the world, the metrics against
+    ``goal`` ((2,) or (B, 2)), the shift and the freeze. Returns the new
+    state and ``rti_new`` after any status-4 reset (the pre-shift horizon)."""
+    spec, opts = ctrl.spec, ctrl.options
+    # status-4 analogue: rows whose solve did not converge reset their warm
+    # start and (compat_brake_bug) brake the plant; the failed u0 is still
+    # applied this tick
+    x0_eff, resets = st.x0, st.resets
+    if opts.init_guess_when_error:
+        fail = ~((sol.mu < opts.fail_mu_tol) & (sol.stat_res < opts.fail_stat_tol))
+        if opts.compat_brake_bug and opts.init_guess != "interpolate":
+            braked = torch.cat([st.x0[:, :3], torch.zeros_like(st.x0[:, 3:])], 1)
+            x0_eff = torch.where(fail[:, None], braked, st.x0)
+        reset = ctrl.initial_guess(x0_eff, goal)
+        rti_new = RtiState(*(torch.where(fail.reshape(-1, 1, 1), a, b)
+                             for a, b in zip(reset, rti_new)))
+        resets = st.resets + fail.to(torch.int32)
+
+    x_new = ctrl.integrate(x0_eff, u0)
+    obst_new = obstacle_step(st.obst, spec, random_move=random_move, noise=noise,
+                             generator=generator)
+
+    oob = (st.oob | (torch.abs(x_new[:, 0]) > spec.x_max)
+           | (torch.abs(x_new[:, 1]) > spec.y_max))
+    d = x_new[:, None, :2] - obst_new.pos
+    margin = torch.amin(torch.linalg.norm(d, dim=-1)
+                        - (spec.r_obst + spec.r_robot), dim=-1)
+    min_margin = torch.minimum(st.min_margin, margin)
+    dist = torch.linalg.norm(x_new[:, :2] - goal, dim=-1)
+    reached = dist <= spec.tol
+    steps = st.steps + (~reached).to(torch.int32)
+    rti_shifted = ctrl.shift(rti_new)
+
+    new = LoopState(
+        x0=x_new, rti=rti_shifted, obst=obst_new,
+        done=st.done | reached, reached=st.reached | reached,
+        oob=oob, min_margin=min_margin, dist=dist, steps=steps,
+        resets=resets)
+    frozen = LoopState(
+        x0=_freeze(st.done, st.x0, new.x0),
+        rti=RtiState(*(_freeze(st.done, o, u) for o, u in zip(st.rti, new.rti))),
+        obst=ObstacleState(*(_freeze(st.done, o, u) for o, u in zip(st.obst, new.obst))),
+        **{f: _freeze(st.done, getattr(st, f), getattr(new, f))
+           for f in LoopState._fields[3:]})
+    return frozen, rti_new
+
+
 def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
-                      backend: str = "fused",
+                      random_move: bool = True, backend: str = "fused",
                       generator: torch.Generator | None = None):
     """The natively batched control tick.
 
@@ -120,7 +178,7 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
       only the tick's glue to time.
 
     ``generator`` draws the obstacle noise when a tick is called without
-    ``noise``."""
+    ``noise``; without ``random_move`` the obstacles bounce noise-free."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not ported; choose from {BACKENDS}")
     spec, opts = ctrl.spec, ctrl.options
@@ -153,65 +211,111 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
         rti_new = RtiState(x_traj=st.rti.x_traj + sol.dx,
                            u_traj=st.rti.u_traj + sol.du)
         u0 = rti_new.u_traj[:, 0]
-
-        # status-4 analogue: rows whose solve did not converge reset their
-        # warm start and (compat_brake_bug) brake the plant; the failed u0
-        # is still applied this tick
-        x0_eff, resets = st.x0, st.resets
-        if opts.init_guess_when_error:
-            fail = ~((sol.mu < opts.fail_mu_tol) & (sol.stat_res < opts.fail_stat_tol))
-            if opts.compat_brake_bug and opts.init_guess != "interpolate":
-                braked = torch.cat([st.x0[:, :3], torch.zeros_like(st.x0[:, 3:])], 1)
-                x0_eff = torch.where(fail[:, None], braked, st.x0)
-            reset = ctrl.initial_guess(x0_eff, goal)
-            rti_new = RtiState(*(torch.where(fail.reshape(-1, 1, 1), a, b)
-                                 for a, b in zip(reset, rti_new)))
-            resets = st.resets + fail.to(torch.int32)
-
-        x_new = ctrl.integrate(x0_eff, u0)
-        obst_new = obstacle_step(st.obst, spec, noise=noise, generator=generator)
-
-        oob = (st.oob | (torch.abs(x_new[:, 0]) > spec.x_max)
-               | (torch.abs(x_new[:, 1]) > spec.y_max))
-        d = x_new[:, None, :2] - obst_new.pos
-        margin = torch.amin(torch.linalg.norm(d, dim=-1)
-                            - (spec.r_obst + spec.r_robot), dim=-1)
-        min_margin = torch.minimum(st.min_margin, margin)
-        dist = torch.linalg.norm(x_new[:, :2] - goal, dim=-1)
-        reached = dist <= spec.tol
-        steps = st.steps + (~reached).to(torch.int32)
-        rti_shifted = ctrl.shift(rti_new)
-
-        new = LoopState(
-            x0=x_new, rti=rti_shifted, obst=obst_new,
-            done=st.done | reached, reached=st.reached | reached,
-            oob=oob, min_margin=min_margin, dist=dist, steps=steps,
-            resets=resets)
-        return LoopState(
-            x0=_freeze(st.done, st.x0, new.x0),
-            rti=RtiState(*(_freeze(st.done, o, u) for o, u in zip(st.rti, new.rti))),
-            obst=ObstacleState(*(_freeze(st.done, o, u) for o, u in zip(st.obst, new.obst))),
-            **{f: _freeze(st.done, getattr(st, f), getattr(new, f))
-               for f in LoopState._fields[3:]})
+        return _advance(ctrl, st, rti_new, u0, sol, goal, random_move, noise, generator)[0]
 
     return tick
 
 
 def make_batched_rollout(ctrl: RtiController, goal, params: CostParams,
-                         max_iter: int = 400, backend: str = "fused",
+                         max_iter: int = 400, random_move: bool = True,
+                         backend: str = "fused", collect: bool = False,
                          use_noise_traj: bool = False,
                          generator: torch.Generator | None = None):
     """Run the batched tick ``max_iter`` times (a Python loop over ticks).
 
     With ``use_noise_traj`` the rollout takes a second argument, the
-    ``(max_iter, B, M, 2)`` noise stream, one slice per tick."""
-    tick = make_batched_tick(ctrl, goal, params, backend=backend, generator=generator)
+    ``(max_iter, B, M, 2)`` noise stream, one slice per tick. With
+    ``collect`` it returns ``(final, (x0, obst_pos))``, the states after
+    each tick stacked as (T, B, nx) and (T, B, M, 2)."""
+    tick = make_batched_tick(ctrl, goal, params, random_move=random_move,
+                             backend=backend, generator=generator)
 
     def rollout(st: LoopState, noise_traj: torch.Tensor | None = None):
+        xs, ps = [], []
         for i in range(max_iter):
             st = tick(st, noise=None if noise_traj is None else noise_traj[i])
+            if collect:
+                xs.append(st.x0)
+                ps.append(st.obst.pos)
+        if collect:
+            return st, (torch.stack(xs), torch.stack(ps))
         return st
 
     if use_noise_traj:
         return rollout
     return lambda st: rollout(st, None)
+
+
+def make_parametric_tick(ctrl: RtiController, random_move: bool = True,
+                         return_pred: bool = False,
+                         generator: torch.Generator | None = None):
+    """The tick with the goal and the cost parameters as arguments, for B
+    rows at once (the JAX package's single-scenario tick under ``vmap``).
+
+    ``tick(st, goal, params, noise=None)``: ``goal`` is (2,) or one per row,
+    (B, 2), the subgoal interface the RL layer retargets every step;
+    ``params`` is shared or per row (``RtiController.build_qp``). It
+    solves with :meth:`RtiController.rti_step` (kernel K2 on CUDA tensors,
+    at ``options.ip_reg``). ``noise`` is as in :func:`make_batched_tick`;
+    without it the draw comes from ``generator``. With ``return_pred`` the
+    tick also returns this tick's solved state horizon, (B, N+1, nx), before
+    the shift."""
+    spec, opts = ctrl.spec, ctrl.options
+    n = spec.n_solv
+
+    def tick(st: LoopState, goal, params: CostParams,
+             noise: torch.Tensor | None = None):
+        goal = torch.as_tensor(goal, dtype=ctrl.dtype, device=ctrl.device)
+        pred = predict_trajectory(st.obst, spec, n,
+                                  compat_pred_bug=opts.compat_pred_bug).movedim(0, 1)
+        rti_new, u0, sol = ctrl.rti_step(st.rti, st.x0, goal, pred, params)
+        frozen, rti_new = _advance(ctrl, st, rti_new, u0, sol, goal, random_move, noise,
+                                   generator)
+        if return_pred:
+            return frozen, rti_new.x_traj
+        return frozen
+
+    return tick
+
+
+def make_tick(ctrl: RtiController, goal, params: CostParams,
+              random_move: bool = True, return_pred: bool = False,
+              generator: torch.Generator | None = None):
+    """The fixed-goal tick: :func:`make_parametric_tick` with ``goal`` and
+    ``params`` bound; ``tick(st, noise=None)``."""
+    goal = torch.as_tensor(goal, dtype=ctrl.dtype, device=ctrl.device)
+    ptick = make_parametric_tick(ctrl, random_move=random_move,
+                                 return_pred=return_pred, generator=generator)
+
+    def tick(st: LoopState, noise: torch.Tensor | None = None):
+        return ptick(st, goal, params, noise=noise)
+
+    return tick
+
+
+def make_rollout(ctrl: RtiController, goal, params: CostParams,
+                 max_iter: int = 400, random_move: bool = True,
+                 collect: bool = False, generator: torch.Generator | None = None):
+    """Run :func:`make_tick` ``max_iter`` times (the reference's 400-step
+    experiment). With ``collect`` it returns ``(final, (x0, obst_pos,
+    pred_x))``: the state after each tick and the tick's solved horizon,
+    stacked as (T, B, nx), (T, B, M, 2) and (T, B, N+1, nx), for
+    visualization (``utils/viz.py``) and tests."""
+    tick = make_tick(ctrl, goal, params, random_move=random_move,
+                     return_pred=collect, generator=generator)
+
+    def rollout(st: LoopState):
+        xs, ps, preds = [], [], []
+        for _ in range(max_iter):
+            if collect:
+                st, pred_x = tick(st)
+                xs.append(st.x0)
+                ps.append(st.obst.pos)
+                preds.append(pred_x)
+            else:
+                st = tick(st)
+        if collect:
+            return st, (torch.stack(xs), torch.stack(ps), torch.stack(preds))
+        return st
+
+    return rollout

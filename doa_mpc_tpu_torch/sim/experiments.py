@@ -52,7 +52,8 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
     a ``torch.Generator`` seeded with ``seed``. ``backend`` is one of
     ``sim.closed_loop.BACKENDS`` ('fused', 'torch', 'riccati', 'zero')."""
     if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP item 12)")
+        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP: the "
+                                  "parallel/ item, parallel/ on torch.distributed)")
     dev = resolve_device(device)
     ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
     params = params or default_cost_params(spec, dtype=dtype, device=dev)

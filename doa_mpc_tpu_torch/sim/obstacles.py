@@ -87,19 +87,23 @@ def bounce_step(state: ObstacleState, spec, dt=None) -> ObstacleState:
     return ObstacleState(torch.stack([px, py], -1), torch.stack([vx, vy], -1))
 
 
-def obstacle_step(state: ObstacleState, spec,
+def obstacle_step(state: ObstacleState, spec, random_move: bool = True,
                   noise: torch.Tensor | None = None,
                   generator: torch.Generator | None = None) -> ObstacleState:
-    """Simulation step: velocity noise, then bounce.
+    """Simulation step: velocity noise (with ``random_move``), then bounce.
 
     ``noise`` is a standard-normal draw shaped like ``vel`` (the compat
-    stream); without it the draw comes from ``generator``."""
-    if noise is None:
-        noise = torch.randn(state.vel.shape, generator=generator,
-                            dtype=state.vel.dtype, device=state.vel.device)
-    vel = (1.0 + spec.randomness * noise) * state.vel
-    vel = torch.clamp(vel, -spec.v_max_obst, spec.v_max_obst)
-    return bounce_step(ObstacleState(state.pos, vel), spec)
+    stream); without it the draw comes from ``generator``. Without
+    ``random_move`` the step is a plain :func:`bounce_step` and draws
+    nothing."""
+    if random_move:
+        if noise is None:
+            noise = torch.randn(state.vel.shape, generator=generator,
+                                dtype=state.vel.dtype, device=state.vel.device)
+        vel = (1.0 + spec.randomness * noise) * state.vel
+        vel = torch.clamp(vel, -spec.v_max_obst, spec.v_max_obst)
+        state = ObstacleState(state.pos, vel)
+    return bounce_step(state, spec)
 
 
 def predict_trajectory(state: ObstacleState, spec, n: int,

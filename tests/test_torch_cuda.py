@@ -418,3 +418,129 @@ def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
         torch.tensor(xs), torch.tensor(us))
     for g, w in zip(lin32, lin64):
         np.testing.assert_allclose(g.double().cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the single-scenario path, the RL layer and demo: K2 through rti_step
+# ---------------------------------------------------------------------------
+
+def _forbid_plain_riccati(mp):
+    """K2's plain version and the plain Riccati sweep raise if reached."""
+    from doa_mpc_tpu_torch.ops import ip_qp
+
+    def plain_on_a_card(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain Riccati solve")
+
+    mp.setattr(riccati_fused, "riccati_solve_fused_ref", plain_on_a_card)
+    mp.setattr(ip_qp, "riccati_factorize", plain_on_a_card)
+    mp.setattr(ip_qp, "riccati_solve", plain_on_a_card)
+
+
+def _rti_inputs(dev, dtype, nb, qp_iter=10):
+    """A controller on ``dev`` and cold-start rti_step inputs of the RL
+    env's shape (N=20, M=5, 10 IP iterations) on compat_rng worlds, one goal
+    per row."""
+    from doa_mpc_tpu_torch.config import default_cost_params
+    from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state
+    from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
+    from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
+    from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=qp_iter)
+    ctrl = make_rti_controller(spec, SolverOptions(qp_iter=qp_iter, integrator="rk4"),
+                               dtype=dtype, device=dev)
+    start, goal = robot_start_goal(spec)
+    obst, _ = mt_experiment_batch(range(nb), spec, "RANDOM", max_iter=1, dtype=np.float64)
+    st = init_loop_state(ctrl, start, goal, batch_shape=(nb,), obst=obst)
+    goals = torch.tensor(np.stack([np.linspace(-6.0, 6.0, nb), np.linspace(6.0, -3.0, nb)], -1),
+                         dtype=dtype, device=dev)
+    pred = predict_trajectory(st.obst, spec, spec.n_solv).movedim(0, 1)
+    return ctrl, (st.rti, st.x0, goals, pred, default_cost_params(spec, dtype=dtype, device=dev))
+
+
+def test_rti_step_on_cuda_launches_k2_and_matches_cpu(cuda, monkeypatch):
+    """``rti_step`` on CUDA tensors launches K2 twice per IP iteration and
+    never a plain Riccati solve. In f64 it matches the CPU's plain path at
+    1e-10 (B=8: rows whose unconverged 10-iteration solve is well
+    conditioned, which the CPU's two f64 solvers, K2's plain version and
+    the plain Riccati sweep, confirm by agreeing at 1e-10; on some cold
+    starts the iterates amplify last-bit differences to 1e-3). In f32 (B=64)
+    it is no further from a converged f64 oracle than the CPU's f32 plain
+    path allows (the rule of chip_smoke.py phase 3)."""
+    from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
+
+    ctrl_cpu, args_cpu = _rti_inputs("cpu", torch.float64, 8)
+    qp = ctrl_cpu.build_qp(*args_cpu)
+    spread = (solve_ocp_qp(qp, iters=10, reg=1e-9, backend="riccati").du
+              - solve_ocp_qp(qp, iters=10, reg=1e-9, backend="torch").du).abs().max()
+    assert float(spread) < 1e-10
+    new_cpu, u0_cpu, _ = ctrl_cpu.rti_step(*args_cpu)
+    ctrl, args = _rti_inputs(cuda, torch.float64, 8)
+    ctrl32, args32 = _rti_inputs(cuda, torch.float32, 64)
+    before = riccati_solve_fused.launches
+    with monkeypatch.context() as mp:
+        _forbid_plain_riccati(mp)
+        new, u0, _ = ctrl.rti_step(*args)
+        u32 = ctrl32.rti_step(*args32)[1]
+        torch.cuda.synchronize()
+    assert riccati_solve_fused.launches == before + 2 * 2 * 10
+    for g, w in ((new.x_traj, new_cpu.x_traj), (new.u_traj, new_cpu.u_traj), (u0, u0_cpu)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0, atol=1e-10)
+    c80, a80 = _rti_inputs("cpu", torch.float64, 64, qp_iter=80)
+    truth = c80.rti_step(*a80)[1]
+    c32, a32 = _rti_inputs("cpu", torch.float32, 64)
+    u32_cpu = c32.rti_step(*a32)[1]
+    e_k = (u32.double().cpu() - truth).abs().amax(1)
+    e_p = (u32_cpu.double() - truth).abs().amax(1)
+    q = torch.tensor([0.5, 0.95], dtype=torch.float64)
+    (mk, pk), (mp_, pp) = torch.quantile(e_k, q).tolist(), torch.quantile(e_p, q).tolist()
+    assert mk <= max(2 * mp_, 1e-3) and pk <= max(2 * pp, 1e-2), (mk, pk, mp_, pp)
+
+
+def test_subgoal_env_step_on_cuda_is_finite(cuda, monkeypatch):
+    from doa_mpc_tpu_torch.rl.env import SubgoalEnv
+
+    env = SubgoalEnv(device=cuda)
+    assert env.batch == 64 and env.k_ticks == 10
+    st, obs = env.reset(torch.Generator(device=cuda).manual_seed(0))
+    before = riccati_solve_fused.launches
+    with monkeypatch.context() as mp:
+        _forbid_plain_riccati(mp)
+        st, obs, r, done = env.step(st, torch.full((64, 2), 6.0, device=cuda))
+        torch.cuda.synchronize()
+    assert riccati_solve_fused.launches == before + 2 * 10 * 10
+    assert obs.shape == (64, env.obs_dim) and obs.is_cuda
+    for a in (obs, r, st.loop.x0):
+        assert bool(torch.isfinite(a).all())
+
+
+def test_ddpg_update_on_cuda_with_a_cuda_generator(cuda):
+    from doa_mpc_tpu_torch.rl.ddpg import DDPG, DDPGConfig, ReplayBuffer, Transition
+
+    cfg = DDPGConfig()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    agent = DDPG(cfg, device=cuda).init(gen)
+    buf = ReplayBuffer.create(cfg, device=cuda)
+    obs = torch.randn((64, cfg.obs_dim), generator=gen, device=cuda)
+    act = agent.act(obs, gen, noise=True)
+    assert act.is_cuda and float(act.abs().max()) <= cfg.act_limit
+    buf.add_batch(Transition(obs, act, torch.randn((64,), generator=gen, device=cuda),
+                             obs.flip(0), torch.zeros((64,), device=cuda)))
+    info = agent.update(buf.sample(gen, cfg.batch_size))
+    assert info["critic_loss"].is_cuda and info["actor_loss"].is_cuda
+    assert np.isfinite(float(info["critic_loss"])) and np.isfinite(float(info["actor_loss"]))
+
+
+def test_demo_rollout_on_cuda_goes_through_k2(cuda, monkeypatch):
+    from doa_mpc_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(["demo", "--device", "cuda", "--max-iter", "5"])
+    k1, k2 = solve_ocp_qp_fused.launches, riccati_solve_fused.launches
+    with monkeypatch.context() as mp:
+        _forbid_plain_riccati(mp)
+        _, _, _, fin, (xs, obs, pred) = cli.demo_rollout(args)
+        torch.cuda.synchronize()
+    assert riccati_solve_fused.launches == k2 + 2 * args.qp_iter * 5
+    assert solve_ocp_qp_fused.launches == k1
+    assert xs.shape == (5, 1, 5) and pred.shape == (5, 1, 21, 5)
+    assert all(bool(torch.isfinite(a).all()) for a in (xs, obs, pred))
