@@ -17,17 +17,23 @@ seed-matched Monte-Carlo cell ``20221031_215846`` (RANDOM, TF 2.0, N 20, M
 interior-point solver with K2, phase 7). Phases 9-10 replay the IRK leg
 and the sweeps' corners through K1. Phase 11 runs the single-scenario path
 through K2 (``RtiController.rti_step``): the ``demo`` command's rollout
-(B=1, 20 IP iterations, 400 ticks) and the f64 parametric tick with
+(B=1, 20 IP iterations, 200 ticks) and the f64 parametric tick with
 per-row goals on the card against the CPU; phase 12 trains the RL layer
 (``SubgoalEnv`` at B=64 and DDPG at their defaults, 2 episodes of 10
 steps); in both, K2's plain version and the plain Riccati sweep raise if
 reached. Phase 13 replays the rk4 seed-matched legs ``prod_rk4_qp6`` and
-``prod_fixedbug`` through K1. Each path runs with the launch
-counts set to 0 just before it and read just after. It times the control
-ticks and the kernels (device time from CUDA events around launches queued
-behind a spin kernel; K1 for each instantiation and K2 at B=4096 and B=1),
-computes each kernel's bound from its
-bytes and its counted operations, and prints one line per phase.
+``prod_fixedbug`` through K1. Phase 14 runs the production campaign cell
+sharded (``parallel/``): in process over a one-card mesh against the
+unsharded run (identical rows, 400 K1 launches each, statistics equal to
+the rows' sums and minimum), then the ``experiment --distributed`` command
+as two gloo ranks on the card (one writer; rates within 0.10). Each path
+runs with the launch counts set to 0 just before it and read just after.
+It times the control ticks (phase 5 takes the fused ticks from the
+``bench`` command's ``measure`` and prints its JSON line) and the kernels
+(device time from CUDA events around launches queued behind a spin kernel;
+K1 for each instantiation and K2 at B=4096 and B=1), computes each
+kernel's bound from its bytes and its counted operations
+(``utils/profiling.py``), and prints one line per phase.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result; it also does so without CUDA or
@@ -39,6 +45,7 @@ import contextlib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -51,17 +58,16 @@ PARITY_CSV = os.path.join(REPO, "results", "parity_r5", "prod_rk4_qp6",
                           "20221031_215846_RANDOM_ours.csv")
 IRK_PARITY = os.path.join(REPO, "results", "parity_r5", "v1_nostatus4")
 HARD_QPS = os.path.join(REPO, "tests", "fixtures", "hard_qps_f32.npz")
-# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 B_MAIN, N, M, QP_ITER = 4096, 20, 5, 6
 CAPTURE_TICKS = (0, 10, 30)
-# tick timing: phase 5 (the fused and zero ticks) and phase 8 (the solver
-# backends)
-TICK_WARMUP, TICK_REPS = 10, 100
+# tick timing: phase 5 (the zero and IRK ticks; the fused rk4 ticks come
+# from the bench) and phase 8 (the solver backends)
+TICK_WARMUP, TICK_REPS = 10, 50
 SOLVER_WARMUP, SOLVER_REPS = 5, 20
-# the depth of phase 10's sweep runs: the ticks are host-bound, so the
+# the depth of phase 10's sweep runs and of phase 11's demo rollout (whose
+# robot reaches the goal at tick 135): the ticks are host-bound, so the
 # script's time goes with ticks, not seeds
-TICKS10 = 100
+TICKS10, TICKS_DEMO = 100, 200
 
 
 _LAP = [time.time()]
@@ -82,13 +88,6 @@ def _die(msg):
 def _check(cond, msg):
     if not cond:
         _die(msg)
-
-
-def card_name():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, reps, warmup=1):
@@ -151,24 +150,18 @@ def seeded_lqrs(torch, dev, nb=B_MAIN, n=N, seed=0):
         rng.standard_normal((nb, 5)))]
 
 
-def _k1_bytes(nb, N, M, unicycle):
-    """Bytes K1 must move: the QP entries its instantiation reads, once, and
-    dx, du, s, mu, stat written once (float32)."""
-    n1 = N + 1
-    ins = (N * 5 * (3 if unicycle else 5) + N * 10 + N * 5 + 5
-           + n1 * (5 if unicycle else 25) + n1 * 5 + N * (2 if unicycle else 4) + N * 2
-           + (0 if unicycle else N * 10) + N * 4 + n1 * 8
-           + n1 * M * (2 if unicycle else 5) + n1 * M * (2 if unicycle else 3))
-    outs = n1 * 5 + N * 2 + n1 * M + 2
-    return 4 * nb * (ins + outs)
-
-
 def mcnemar_z(ours, ref):
     """McNemar z on paired 0/1 outcomes: |b - c| / sqrt(b + c) over the
     discordant seeds (0 when there are none)."""
     b = int(((ours == 1) & (ref == 0)).sum())
     c = int(((ours == 0) & (ref == 1)).sum())
     return abs(b - c) / (b + c) ** 0.5 if b + c else 0.0
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 @contextlib.contextmanager
@@ -191,13 +184,6 @@ def plain_forbidden(ip_qp, riccati_fused):
             setattr(mod, name, fn)
 
 
-def _bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 rate."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def main():
     try:
         import torch
@@ -213,7 +199,7 @@ def main():
 
     import numpy as np
     from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
-    from doa_mpc_tpu_torch import cli
+    from doa_mpc_tpu_torch import bench, cli
     from doa_mpc_tpu_torch.ops import cuda_build, ip_fused, ip_qp, riccati_fused
     from doa_mpc_tpu_torch.ops.ip_fused import (
         GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
@@ -221,6 +207,7 @@ def main():
     from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp, normalize_cost
     from doa_mpc_tpu_torch.ops.op_count import OpCounter
     from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
+    from doa_mpc_tpu_torch.parallel import mesh as pmesh
     from doa_mpc_tpu_torch.rl import train as rl_train
     from doa_mpc_tpu_torch.rl.ddpg import DDPG, DDPGConfig, ReplayBuffer
     from doa_mpc_tpu_torch.rl.env import SubgoalEnv
@@ -231,9 +218,11 @@ def main():
     from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
     from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+    from doa_mpc_tpu_torch.utils.profiling import (
+        F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes, time_fn)
 
     dev = torch.device("cuda", 0)
-    card = card_name()
+    card = device_label(dev)
     STRUCTURES = {"generic": GENERIC_STRUCTURE, "unicycle": UNICYCLE_QP_STRUCTURE}
 
     # ---- phase 1: device -------------------------------------------------
@@ -373,19 +362,31 @@ def main():
           f"card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 5: throughput ------------------------------------------------
-    def tick_ms(batch, backend, c=ctrl):
+    # the fused rk4 ticks at B=4096 and B=1 are the bench's (the `bench`
+    # command's configuration and timing); the other ticks through the same
+    # timer, utils.profiling.time_fn
+    solve_ocp_qp_fused.launches = 0
+    bench_json = bench.measure(device=dev)
+    bench_k1 = solve_ocp_qp_fused.launches
+    want_bench = 2 * (bench.WARMUP + bench_json["chunks"] * (bench_json["chunk_ticks"] + 1))
+    _check(bench_k1 == want_bench, f"the bench launched K1 {bench_k1} times, expected {want_bench}")
+    _check(bench_json["batch"] == B_MAIN and bench_json["qp_iter"] == QP_ITER
+           and all(np.isfinite(v) and v > 0 for v in (bench_json["value"],
+                                                      bench_json["b1_device_tick_s"])),
+           f"bench: {bench_json}")
+    print(json.dumps(bench_json), flush=True)
+    ms_4096 = bench_json["p50_chunkmean_tick_s"] * 1e3
+    ms_1 = bench_json["b1_p50_chunkmean_tick_s"] * 1e3
+
+    def tick_ms(batch, backend, c=ctrl, warmup=TICK_WARMUP, reps=TICK_REPS):
         gen = torch.Generator(device=dev).manual_seed(0)
         tk = make_batched_tick(c, goal, params, backend=backend, generator=gen)
-        state = [init_loop_state(c, start, goal, batch_shape=(batch,), generator=gen)]
+        state = init_loop_state(c, start, goal, batch_shape=(batch,), generator=gen)
+        for _ in range(warmup - 1):      # time_fn's own call is the last
+            state = tk(state)
+        return time_fn(tk, state, reps=reps) * 1e3
 
-        def step():
-            state[0] = tk(state[0])
-
-        return time_ms(torch, step, reps=TICK_REPS, warmup=TICK_WARMUP)
-
-    ms_4096 = tick_ms(B_MAIN, "fused")
     ms_zero = tick_ms(B_MAIN, "zero")
-    ms_1 = tick_ms(1, "fused")
     ms_zero_1 = tick_ms(1, "zero")
     # the same ticks with the default integrator (IRK in the linearization
     # and the plant)
@@ -418,9 +419,13 @@ def main():
     with open(os.path.join(OUT_DIR, "phase5_k1_device_ms.json"), "w") as f:
         json.dump({f"{s_}_B{b_}": v for (s_, b_), v in k1_dev.items()}, f, indent=1)
     print(f"phase 5 throughput: B={B_MAIN} tick {ms_4096:.4f} ms = "
-          f"{B_MAIN / ms_4096 * 1e3:.0f} solves/s; glue-only (zero backend) tick "
-          f"{ms_zero:.4f} ms | B=1 tick {ms_1:.4f} ms; glue-only {ms_zero_1:.4f} ms "
-          f"(rk4; {TICK_WARMUP} warm-up + {TICK_REPS} timed ticks each) | IRK: "
+          f"{B_MAIN / ms_4096 * 1e3:.0f} solves/s (bench: median of "
+          f"{bench_json['chunks']} chains of {bench_json['chunk_ticks']} ticks, "
+          f"{bench_json['min_chunkmean_tick_s'] * 1e3:.4f}-"
+          f"{bench_json['max_chunkmean_tick_s'] * 1e3:.4f} ms; K1 launches {bench_k1}); "
+          f"glue-only (zero backend) tick {ms_zero:.4f} ms | B=1 tick {ms_1:.4f} ms (bench); "
+          f"glue-only {ms_zero_1:.4f} ms (zero and IRK ticks: {TICK_WARMUP} warm-up + "
+          f"{TICK_REPS} timed ticks each) | IRK: "
           f"B={B_MAIN} tick {irk_ms[(B_MAIN, 'fused')]:.4f} ms = "
           f"{B_MAIN / irk_ms[(B_MAIN, 'fused')] * 1e3:.0f} solves/s; glue-only "
           f"{irk_ms[(B_MAIN, 'zero')]:.4f} ms | B=1 tick {irk_ms[(1, 'fused')]:.4f} ms; "
@@ -534,19 +539,10 @@ def main():
           f"K2 launches={k2_launches}; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 8: solver-backend ticks and K2 time ---------------------------
-    def solver_tick_ms(batch, backend):
-        gen = torch.Generator(device=dev).manual_seed(0)
-        tk = make_batched_tick(ctrl, goal, params, backend=backend, generator=gen)
-        state = [init_loop_state(ctrl, start, goal, batch_shape=(batch,), generator=gen)]
-
-        def step():
-            state[0] = tk(state[0])
-
-        return time_ms(torch, step, reps=SOLVER_REPS, warmup=SOLVER_WARMUP)
-
-    ms_r = solver_tick_ms(B_MAIN, "riccati")
-    ms_t = solver_tick_ms(B_MAIN, "torch")
-    ms_r1 = solver_tick_ms(1, "riccati")
+    solver = dict(warmup=SOLVER_WARMUP, reps=SOLVER_REPS)
+    ms_r = tick_ms(B_MAIN, "riccati", **solver)
+    ms_t = tick_ms(B_MAIN, "torch", **solver)
+    ms_r1 = tick_ms(1, "riccati", **solver)
     k2_call_ms = time_ms(torch, lambda: riccati_solve_fused(*lqr32), reps=50, warmup=3)
     k2_ms = kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr32), 50)
     k2_ms_1 = kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr32_1), 20)
@@ -716,8 +712,8 @@ def main():
         plain_ = time_ms(torch, lambda: solve_ocp_qp_fused_ref(qx, iters=it), reps=1, warmup=1)
         t0 = time.time()
         ops_ = opc.ip_solve(qx, it, uni)
-        bytes_ = _k1_bytes(100, n_, m_, unicycle=True)
-        bound_, by_ = _bound(bytes_, ops_)
+        bytes_ = fused_hbm_bytes(WorldSpec(n_solv=n_, n_obst=m_), 100)
+        bound_, by_ = bound(bytes_, ops_)
         new_shapes[f"N{n_}_M{m_}_it{it}"] = dict(ms=ms_, plain_ms=plain_, err_1=err, ops=ops_,
                                                  bytes=bytes_, bound_ms=bound_, bound_by=by_,
                                                  count_s=time.time() - t0)
@@ -733,9 +729,10 @@ def main():
 
     # ---- phase 11: the single-scenario path and demo, K2 through rti_step ----
     # the demo command's own configuration (B=1, N=20, M=5, 20 IP iterations,
-    # rk4, f32, 400 ticks, seed 1), without its GIF; K2's plain version and
-    # the plain Riccati sweep raise if a CUDA tensor reaches them
-    demo_args = cli.build_parser().parse_args(["demo", "--device", "cuda"])
+    # rk4, f32, seed 1), without its GIF, cut to TICKS_DEMO ticks; K2's plain
+    # version and the plain Riccati sweep raise if a CUDA tensor reaches them
+    demo_args = cli.build_parser().parse_args(["demo", "--device", "cuda",
+                                               "--max-iter", str(TICKS_DEMO)])
     n_demo, it_demo = demo_args.max_iter, demo_args.qp_iter
     solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
     t0 = time.time()
@@ -940,17 +937,114 @@ def main():
                       for leg, a in legs13.items())
           + f"; card={card}; wall {lap():.1f} s", flush=True)
 
+    # ---- phase 14: sharded campaigns through K1 ---------------------------------
+    # the production campaign cell (TF 2.0, N 20, M 5, 6 IP iterations, rk4,
+    # fused, f32, RANDOM, 100 seeds x 400 ticks, seed 0): (a) in process over
+    # a one-card mesh and unsharded, (b) the experiment command as two
+    # processes of a gloo group, both on cuda:0 with 50 rows each
+    spec14 = WorldSpec(tf=2.0, n_solv=N, n_obst=M, qp_iter=QP_ITER)
+    opts14 = SolverOptions(qp_iter=QP_ITER, integrator="rk4")
+    sharded_rollout, stats14, runs14 = pmesh.make_sharded_rollout, [], {}
+
+    def recording_rollout(*a, **k):
+        """``make_sharded_rollout`` whose runs record their statistics."""
+        fn = sharded_rollout(*a, **k)
+
+        def run(shards):
+            final, stats = fn(shards)
+            stats14.append(stats)
+            return final, stats
+
+        return run
+
+    mesh14 = pmesh.make_data_mesh()
+    pmesh.make_sharded_rollout = recording_rollout
+    try:
+        for name, mesh_ in (("mesh", mesh14), ("unsharded", None)):
+            solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+            t0 = time.time()
+            d = run_scenario_batch(spec14, opts14, "RANDOM", n_runs=100, max_iter=400,
+                                   dtype=torch.float32, backend="fused", mesh=mesh_, device=dev)
+            runs14[name] = (d, solve_ocp_qp_fused.launches, riccati_solve_fused.launches,
+                            time.time() - t0)
+    finally:
+        pmesh.make_sharded_rollout = sharded_rollout
+    d14, d_ref = runs14["mesh"][0], runs14["unsharded"][0]
+    for name, (d, k1, k2, _) in runs14.items():
+        _check(k1 == 400 and k2 == 0, f"phase 14 {name}: K1 launched {k1} times (K2 {k2}) "
+                                      f"in 400 ticks")
+        _check(d.shape == (100, 6) and np.isfinite(d).all(), f"phase 14 {name}: rows {d.shape}")
+    _check(np.array_equal(d14, d_ref), "phase 14: the mesh rows differ from the unsharded rows "
+                                       f"in {int((d14 != d_ref).any(1).sum())} of 100")
+    (st14,) = stats14
+    want14 = dict(n=100.0, reached=d14[:, 1].sum(), hit=d14[:, 0].sum(), oob=d14[:, 5].sum(),
+                  steps_sum=d14[:, 4].sum(), min_margin=d14[:, 2].min())
+    _check(st14 == want14, f"phase 14: stats {st14} are not the rows' sums and min {want14}")
+    launches14 = runs14["mesh"][1]
+
+    out14 = os.path.join(OUT_DIR, "phase14")
+    shutil.rmtree(out14, ignore_errors=True)
+    port = free_port()
+    cmd14 = [sys.executable, "-m", "doa_mpc_tpu_torch", "experiment", "--distributed",
+             "--device", "cuda", "--runs", "100", "--max-iter", "400", "--qp-iter",
+             str(QP_ITER), "--scenarios", "RANDOM", "--out", out14]
+    t0 = time.time()
+    procs = [subprocess.Popen(cmd14, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True,
+                              env=dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                                       WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(2)]
+    try:
+        outs14 = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall14b = time.time() - t0
+    for r, (p, out) in enumerate(zip(procs, outs14)):
+        with open(os.path.join(OUT_DIR, f"phase14_rank{r}.log"), "w") as f:
+            f.write(out)
+        _check(p.returncode == 0, f"phase 14 rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    files14 = sorted(os.listdir(out14))
+    _check(len(files14) == 2 and files14[0].endswith("_experiment_data.csv")
+           and files14[1].endswith("_experiment_spec.json"),
+           f"phase 14: the two ranks wrote {files14}, expected one CSV/JSON pair")
+    summaries = [sum("collision=" in ln for ln in out.splitlines()) for out in outs14]
+    _check(summaries == [1, 0], f"phase 14: summary lines per rank {summaries}, expected [1, 0]")
+    d2 = np.loadtxt(os.path.join(out14, files14[0]), delimiter=";")
+    _check(d2.shape == (100, 6) and np.isfinite(d2).all(), f"phase 14: 2-rank rows {d2.shape}")
+    hit2, reached2 = d2[:, 0].mean(), d2[:, 1].mean()
+    hit1, reached1 = d_ref[:, 0].mean(), d_ref[:, 1].mean()
+    _check(abs(hit2 - hit1) <= 0.10 and abs(reached2 - reached1) <= 0.10,
+           f"phase 14: 2 ranks hit {hit2} reached {reached2} against {hit1} {reached1} unsharded")
+    same_rows = int((d2 == d_ref).all(1).sum())
+    print(f"phase 14 sharded campaigns (TF 2.0, N={N}, M={M}, {QP_ITER} IP iters, rk4, fused, "
+          f"f32, RANDOM, 100 seeds x 400 ticks, seed 0): (a) one-card mesh "
+          f"{runs14['mesh'][3]:.1f} s, unsharded {runs14['unsharded'][3]:.1f} s; rows identical "
+          f"(6 columns, 100 rows); K1 launches {runs14['mesh'][1]} / {runs14['unsharded'][1]}; "
+          f"stats = row sums and min: n {st14['n']:.0f} hit {st14['hit']:.0f} reached "
+          f"{st14['reached']:.0f} oob {st14['oob']:.0f} steps {st14['steps_sum']:.0f} "
+          f"min_margin {st14['min_margin']:.4f} | (b) `experiment --distributed` as 2 gloo "
+          f"ranks on cuda:0, 50 rows each: {wall14b:.1f} s wall (processes started to both "
+          f"exited); one CSV/JSON pair and one summary, from rank 0; hit {hit2:.2f} reached "
+          f"{reached2:.2f} against {hit1:.2f} {reached1:.2f} unsharded; rows identical to the "
+          f"unsharded run: {same_rows} of 100, per-seed agreement hit "
+          f"{(d2[:, 0] == d_ref[:, 0]).mean():.2f} reached {(d2[:, 1] == d_ref[:, 1]).mean():.2f}"
+          f"; card={card}; wall {lap():.1f} s", flush=True)
+
     # bounds: each input byte read once and each output byte written once; the
     # operations the outputs need, counted from each kernel's own code on the
     # inputs it was timed on
     t0 = time.time()
     k1_ops = opc.ip_solve(captured[30], QP_ITER, uni)
     count_s = time.time() - t0
-    k1_bound, k1_by = _bound(_k1_bytes(B_MAIN, N, M, unicycle=True), k1_ops)
+    k1_bytes = fused_hbm_bytes(spec, B_MAIN)
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bytes = 4 * (sum(a.numel() for a in lqr32) + B_MAIN * ((N + 1) * 5 + N * 2 + N * 5))
     k2_ops = opc.riccati(N) * B_MAIN
-    k2_bound, k2_by = _bound(k2_bytes, k2_ops)
-    print(f"bounds: K1 unicycle {_k1_bytes(B_MAIN, N, M, True)} B and {k1_ops} operations "
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    print(f"bounds: K1 unicycle {k1_bytes} B and {k1_ops} operations "
           f"-> {k1_bound:.5f} ms ({k1_by}); K2 {k2_bytes} B and {k2_ops} operations -> "
           f"{k2_bound:.5f} ms ({k2_by}); against {HBM_BYTES_PER_S:.3g} B/s and "
           f"{F32_OPS_PER_S:.3g} f32 op/s (K1 counted in {count_s:.1f} s); card={card}; "
@@ -960,7 +1054,7 @@ def main():
     kernels = [{"name": "ip_solve_kernel<Unicycle>", "route": "cuda",
                 "source": "doa_mpc_tpu_torch/csrc/ip_solve.cu",
                 "replaces": "doa_mpc_tpu/ops/ip_pallas.py:413",
-                "launches": launches, "max_abs_err": max(max_err_1.values()),
+                "launches": launches14, "max_abs_err": max(max_err_1.values()),
                 "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
                 "library_ms": None},
                {"name": "riccati_f32 (rti_step: the demo rollout)", "route": "cuda",

@@ -6,8 +6,11 @@
     python -m doa_mpc_tpu_torch demo         # seeded visual run -> GIF
     python -m doa_mpc_tpu_torch sim          # open-loop integrator rollout
     python -m doa_mpc_tpu_torch evaluate     # aggregate rates + plots
+    python -m doa_mpc_tpu_torch bench        # throughput of the batched tick
 
-The JAX package's ``bench`` command is not ported yet (ROADMAP).
+``experiment``, ``sweep`` and ``qp-sweep`` take ``--mesh`` (shard the
+scenario rows over this process's devices) and ``--distributed`` (join a
+``torch.distributed`` group first, see :func:`_resolve_mesh`).
 """
 
 from __future__ import annotations
@@ -35,6 +38,36 @@ def _run_args(p):
                         "'zero' skips the solve. On the CPU the kernels' plain "
                         "PyTorch versions run")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a multi-process torch.distributed group (gloo; "
+                        "MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK, "
+                        "as torchrun sets them) and shard the scenario rows over "
+                        "its processes; process 0 writes the artifacts")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the scenario rows over this process's devices "
+                        "(every local card with --device cuda); implied by "
+                        "--distributed")
+
+
+def _resolve_mesh(args):
+    """The ``DataMesh`` that ``--distributed``/``--mesh`` ask for, or None.
+
+    ``--distributed`` joins the process group first
+    (``parallel.distributed.initialize``; a no-op without its variables).
+    The mesh holds every local card for ``--device cuda`` (on a rank of a
+    group, its card ``LOCAL_RANK``), else the one device named. Launch
+    recipe, one process per card:
+
+        torchrun --nproc-per-node 4 -m doa_mpc_tpu_torch experiment --distributed ...
+    """
+    if not (args.distributed or args.mesh):
+        return None
+    from doa_mpc_tpu_torch.parallel.distributed import initialize
+    from doa_mpc_tpu_torch.parallel.mesh import make_data_mesh
+
+    if args.distributed:
+        initialize()
+    return make_data_mesh(None if args.device == "cuda" else [args.device])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,6 +112,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=".")
     p.add_argument("--qp", action="store_true",
                    help="QP_ITER plot instead of horizon plots")
+
+    p = sub.add_parser("bench", help="throughput of the batched fused tick (one JSON line)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--batch", type=int, default=4096)
+    p.add_argument("--n-solv", type=int, default=20)
+    p.add_argument("--n-obst", type=int, default=5)
+    p.add_argument("--qp-iter", type=int, default=6)
+    p.add_argument("--chains", type=int, default=20)
+    p.add_argument("--chain-ticks", type=int, default=10)
     return parser
 
 
@@ -96,16 +138,18 @@ def main(argv=None):
         dtype = torch.float64 if args.f64 else torch.float32
         run_experiment(spec=spec, opts=opts, scenarios=args.scenarios,
                        n_runs=args.runs, max_iter=args.max_iter, out_dir=args.out,
-                       dtype=dtype, backend=args.backend,
+                       dtype=dtype, mesh=_resolve_mesh(args), backend=args.backend,
                        compat_rng=args.compat_rng, device=args.device)
     elif args.cmd == "sweep":
         from doa_mpc_tpu_torch.sim.experiments import run_horizon_sweep
         run_horizon_sweep(n_runs=args.runs, out_dir=args.out, verbose=True,
-                          backend=args.backend, device=args.device)
+                          mesh=_resolve_mesh(args), backend=args.backend,
+                          device=args.device)
     elif args.cmd == "qp-sweep":
         from doa_mpc_tpu_torch.sim.experiments import run_qp_iter_sweep
         run_qp_iter_sweep(n_runs=args.runs, out_dir=args.out, verbose=True,
-                          backend=args.backend, device=args.device)
+                          mesh=_resolve_mesh(args), backend=args.backend,
+                          device=args.device)
     elif args.cmd == "demo":
         _demo(args)
     elif args.cmd == "sim":
@@ -119,6 +163,16 @@ def main(argv=None):
             plot_graph_qp_solver(args.data, args.out)
         else:
             plot_graph(args.data, args.out)
+    elif args.cmd == "bench":
+        import json
+        from doa_mpc_tpu_torch import bench
+        print(json.dumps(bench.measure(
+            device=args.device, batch=args.batch, n_solv=args.n_solv, n_obst=args.n_obst,
+            qp_iter=args.qp_iter, chains=args.chains, chain_ticks=args.chain_ticks)),
+            flush=True)
+    if args.cmd in ("experiment", "sweep", "qp-sweep"):
+        from doa_mpc_tpu_torch.parallel.distributed import shutdown
+        shutdown()
 
 
 def demo_rollout(args):

@@ -1,7 +1,9 @@
 """Batched Monte-Carlo experiment harness (``doa_mpc_tpu/sim/experiments.py``).
 
-All seeds of a configuration run as one batched closed-loop rollout on one
-device. The artifacts keep the reference's schema:
+All seeds of a configuration run as one batched closed-loop rollout, on one
+device or sharded over a ``parallel.mesh.DataMesh`` (several devices and
+processes; process 0 alone writes). The artifacts keep the reference's
+schema:
 
 - ``<stamp>_experiment_data.csv``: one row per seed, ``;``-delimited, columns
   (hit, reached_goal, min_margin, final_dist, steps, out_of_bounds);
@@ -27,6 +29,7 @@ import torch
 from doa_mpc_tpu_torch.config import (
     CostParams, SolverOptions, WorldSpec, default_cost_params, resolve_device,
 )
+from doa_mpc_tpu_torch.parallel import distributed, mesh as pmesh
 from doa_mpc_tpu_torch.sim.closed_loop import (
     init_loop_state, make_batched_rollout, metrics_of,
 )
@@ -50,14 +53,38 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
     ``LoopState``. ``compat_rng`` replays the reference's MT19937 worlds and
     noise (row i uses ``np.random.seed(i)``); otherwise worlds and noise come from
     a ``torch.Generator`` seeded with ``seed``. ``backend`` is one of
-    ``sim.closed_loop.BACKENDS`` ('fused', 'torch', 'riccati', 'zero')."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP: the "
-                                  "parallel/ item, parallel/ on torch.distributed)")
-    dev = resolve_device(device)
+    ``sim.closed_loop.BACKENDS`` ('fused', 'torch', 'riccati', 'zero').
+
+    With ``mesh`` (``parallel.mesh.make_data_mesh``) the rows run on the
+    mesh's devices (``device`` is not used): every process builds the
+    whole batch's start from the generator on its first mesh device, keeps
+    its block of rows (``parallel.distributed.host_shard_bounds``) and runs
+    it sharded over its devices, each tick's noise drawn for the whole
+    batch; the metric rows are then gathered, so every process returns all
+    ``n_runs`` rows, equal to the unsharded run's on the same device type.
+    ``return_state`` then returns this process's rows only, on its first
+    mesh device. ``compat_rng`` does not combine with ``mesh``."""
+    if compat_rng and mesh is not None:
+        raise ValueError("compat_rng does not support mesh sharding")
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
     params = params or default_cost_params(spec, dtype=dtype, device=dev)
     start, goal = robot_start_goal(spec, margin=start_goal_margin)
+
+    if mesh is not None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = init_loop_state(ctrl, start, goal, scenario, batch_shape=(n_runs,),
+                                generator=gen)
+        lo, hi = distributed.host_shard_bounds(n_runs)
+        shards = distributed.make_global_batch(pmesh.tree_map(lambda a: a[lo:hi], state), mesh)
+        rollout = pmesh.make_sharded_rollout(ctrl, goal, params, mesh, max_iter=max_iter,
+                                             backend=backend, generator=gen)
+        shards, _stats = rollout(shards)
+        rows = torch.cat([_metric_rows(s).cpu() for s in shards])
+        data = distributed.gather_rows(rows).numpy()
+        if return_state:
+            return data, pmesh.tree_map(lambda *a: torch.cat([x.to(dev) for x in a]), *shards)
+        return data
 
     if compat_rng:
         from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
@@ -77,11 +104,15 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
                                        backend=backend, generator=gen)
         final = rollout(state)
 
-    m = metrics_of(final)
-    data = torch.stack([a.to(torch.float64) for a in m], dim=1).cpu().numpy()
+    data = _metric_rows(final).cpu().numpy()
     if return_state:
         return data, final
     return data
+
+
+def _metric_rows(state) -> torch.Tensor:
+    """The (B, 6) float64 rows of the reference CSV."""
+    return torch.stack([a.to(torch.float64) for a in metrics_of(state)], dim=1)
 
 
 def _fresh_stamp(out_dir: str) -> str:
@@ -100,22 +131,30 @@ def run_experiment(spec: WorldSpec | None = None,
                    scenarios: Sequence[str] = ("RANDOM", "EDGE"),
                    n_runs: int = 100, max_iter: int = 400,
                    out_dir: str = "test_data/new",
-                   dtype=torch.float32, verbose: bool = True,
+                   dtype=torch.float32, mesh=None, verbose: bool = True,
                    backend: str = "fused", compat_rng: bool = False, device="cuda"):
     """Per scenario, run the seeded batch and write CSV + spec JSON;
-    ``verbose`` prints each scenario's size and rates."""
+    ``verbose`` prints each scenario's size and rates. With ``mesh`` the
+    batch runs sharded (:func:`run_scenario_batch`) and only process 0
+    creates ``out_dir``, writes and prints."""
     spec = spec or WorldSpec()
     opts = opts or SolverOptions(qp_iter=spec.qp_iter)
-    dev = resolve_device(device)
-    os.makedirs(out_dir, exist_ok=True)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    write = distributed.is_host0()
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     results = {}
     for s in scenarios:
-        if verbose:
+        if verbose and write:
+            where = dev if mesh is None else f"{mesh.size} shard(s)"
             print(f"{s}: solving {n_runs} scenarios (N={spec.n_solv}, "
-                  f"M={spec.n_obst}, qp_iter={opts.qp_iter}) on {dev}")
+                  f"M={spec.n_obst}, qp_iter={opts.qp_iter}) on {where}")
         data = run_scenario_batch(spec, opts, s, n_runs=n_runs, max_iter=max_iter,
-                                  dtype=dtype, backend=backend,
+                                  dtype=dtype, mesh=mesh, backend=backend,
                                   compat_rng=compat_rng, device=dev)
+        results[s] = data
+        if not write:
+            continue
         stamp = _fresh_stamp(out_dir)
         np.savetxt(os.path.join(out_dir, f"{stamp}_experiment_data.csv"), data,
                    delimiter=";")
@@ -138,7 +177,6 @@ def run_experiment(spec: WorldSpec | None = None,
             exp["interpolate_init"] = True
         with open(os.path.join(out_dir, f"{stamp}_experiment_spec.json"), "w") as f:
             json.dump(exp, f)
-        results[s] = data
         if verbose:
             print(f"  collision={data[:, 0].mean():.2%} "
                   f"reached={data[:, 1].mean():.2%} "

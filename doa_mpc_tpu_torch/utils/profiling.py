@@ -1,0 +1,164 @@
+"""Performance accounting (``doa_mpc_tpu/utils/profiling.py``): the FLOP
+model of a tick, kernel K1's bytes, the card's bounds, and timing.
+
+The bounds model one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data
+sheet: 3.35 TB/s of HBM and 67 TFLOP/s in float32 outside the tensor cores.
+A bound is the larger of the bytes a function must move (each input read
+once, each output written once) over the memory rate and its operations
+over the f32 rate; state it beside the card's power limit, which
+:func:`device_label` reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import subprocess
+import time
+
+import torch
+
+from doa_mpc_tpu_torch.ops.ip_fused import GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def tick_flops(spec, qp_iter: int, batch: int) -> dict:
+    """Analytic FLOP model of one batched control tick.
+
+    Components (per scenario):
+      linearize : N stages x RK4-with-jacfwd  (~8 tangents x ~40 flops x 4)
+      riccati   : per IP iteration, backward factorize ~ N x (4 matmuls
+                  nx^3-ish + chol) + 2 back-substitutions
+      ip_misc   : residuals/sigmas/steps over ~2(N+1)(nbx+M) + 2N*nu pairs
+    """
+    N, nx, nu, M = spec.n_solv, spec.nx, spec.nu, spec.n_obst
+    lin = N * 8 * 40 * 4
+    mm = 2 * nx * nx * nx
+    fact = N * (4 * mm + 3 * nx * nu * nu + 20)
+    solve = N * (4 * nx * nx + 6 * nx * nu)
+    per_iter = fact + 2 * solve + 40 * (N + 1) * (2 * M + nx + nu)
+    total = lin + qp_iter * per_iter
+    return {
+        "per_scenario_flops": total,
+        "per_tick_flops": total * batch,
+        "linearize_flops": lin * batch,
+        "per_ip_iter_flops": per_iter * batch,
+    }
+
+
+def fused_hbm_bytes(spec, batch: int, structure=None) -> int:
+    """Bytes kernel K1 must move for one solve of ``batch`` scenarios
+    (float32): the QP entries its instantiation for ``structure`` reads
+    (default: the unicycle structure), once, whatever the IP iteration
+    count, and dx, du, s, mu, stat written once. The unicycle instantiation
+    skips the entries the structure fixes (off-diagonal Q and R, S, the
+    zero columns of C, the unit columns of A)."""
+    structure = UNICYCLE_QP_STRUCTURE if structure is None else structure
+    if structure not in (GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE):
+        raise ValueError("K1 has instantiations for GENERIC_STRUCTURE and "
+                         "UNICYCLE_QP_STRUCTURE only")
+    uni = structure == UNICYCLE_QP_STRUCTURE
+    N, M = spec.n_solv, spec.n_obst
+    n1 = N + 1
+    ins = (N * 5 * (3 if uni else 5) + N * 10 + N * 5 + 5
+           + n1 * (5 if uni else 25) + n1 * 5 + N * (2 if uni else 4) + N * 2
+           + (0 if uni else N * 10) + N * 4 + n1 * 8
+           + n1 * M * (2 if uni else 5) + n1 * M * (2 if uni else 3))
+    outs = n1 * 5 + N * 2 + n1 * M + 2
+    return 4 * batch * (ins + outs)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the f32 rate, and which of the two it is."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def speed_of_light_report(spec, qp_iter: int, batch: int,
+                          measured_tick_s: float) -> dict:
+    """Roofline accounting of one batched ``fused`` tick on the card: the
+    analytic operations of :func:`tick_flops` against the f32 rate, K1's
+    bytes (:func:`fused_hbm_bytes`, one QP read and one result write per
+    solve) against the memory rate, and the measured tick against both."""
+    f = tick_flops(spec, qp_iter, batch)
+    hbm_bytes = fused_hbm_bytes(spec, batch)
+    bound_ms, by = bound(hbm_bytes, f["per_tick_flops"])
+    achieved = f["per_tick_flops"] / measured_tick_s
+    return {
+        **f,
+        "backend": "fused",
+        "achieved_tflops": achieved / 1e12,
+        "f32_peak_ratio": achieved / F32_OPS_PER_S,
+        "ops_bound_tick_s": f["per_tick_flops"] / F32_OPS_PER_S,
+        "hbm_bytes": hbm_bytes,
+        "hbm_bound_tick_s": hbm_bytes / HBM_BYTES_PER_S,
+        "bound_tick_s": bound_ms / 1e3,
+        "bound_by": by,
+        "hbm_fraction_of_tick": hbm_bytes / HBM_BYTES_PER_S / measured_tick_s,
+        "measured_tick_s": measured_tick_s,
+    }
+
+
+def _first_tensor(tree) -> torch.Tensor:
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
+
+
+def time_fn(fn, state0, reps: int = 10) -> float:
+    """Steady-state seconds per call of ``fn`` (state -> state): one warm-up
+    call, then ``reps`` chained calls. On a CUDA state, CUDA events around
+    the chain on the state's device (the host's enqueue overlaps the card's
+    work, as in a rollout); on a CPU state, the host clock."""
+    dev = _first_tensor(state0).device
+    state = fn(state0)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state = fn(state)
+        return (time.perf_counter() - t0) / reps
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            state = fn(state)
+        stop.record()
+        stop.synchronize()
+    return start.elapsed_time(stop) / 1e3 / reps
+
+
+def device_label(device) -> str:
+    """``nvidia-smi``'s "name, power limit" of a CUDA device (the limit sets
+    the card's speed under load), or the device's name otherwise."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return str(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    res = subprocess.run(["nvidia-smi", "-i", str(index),
+                          "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+@dataclasses.dataclass
+class Timer:
+    """Accumulating section timer for host-side phases."""
+
+    sections: dict = dataclasses.field(default_factory=dict)
+
+    def section(self, name):
+        timer = self
+
+        class _Ctx:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+
+            def __exit__(self, *a):
+                timer.sections[name] = (timer.sections.get(name, 0.0)
+                                        + time.perf_counter() - self.t0)
+
+        return _Ctx()
