@@ -22,7 +22,12 @@ per-row goals on the card against the CPU; phase 12 trains the RL layer
 (``SubgoalEnv`` at B=64 and DDPG at their defaults, 2 episodes of 10
 steps); in both, K2's plain version and the plain Riccati sweep raise if
 reached. Phase 13 replays the rk4 seed-matched legs ``prod_rk4_qp6`` and
-``prod_fixedbug`` through K1. Phase 14 runs the production campaign cell
+``prod_fixedbug`` through K1. Every seed-matched replay (phases 4, 7, 9, 13
+and 15) runs through ``doa_mpc_tpu_torch/sim/parity.py``, the cells of one
+setting but for the scenario (a RANDOM/EDGE pair) as one batch. Phase 15
+replays a status-4 pair of ``v0_baseline`` through K1 (the analogue armed
+with the plant brake), and phase 16 the f64 IRK tick of ``f64_nostatus4``
+through K2's f64 entry point against the CPU. Phase 14 runs the production campaign cell
 sharded (``parallel/``): in process over a one-card mesh against the
 unsharded run (identical rows, 400 K1 launches each, statistics equal to
 the rows' sums and minimum), then the ``experiment --distributed`` command
@@ -42,6 +47,7 @@ outside a checkout of the repository. Long diagnostics go to
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -54,9 +60,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
-PARITY_CSV = os.path.join(REPO, "results", "parity_r5", "prod_rk4_qp6",
-                          "20221031_215846_RANDOM_ours.csv")
-IRK_PARITY = os.path.join(REPO, "results", "parity_r5", "v1_nostatus4")
+PARITY_R5 = os.path.join(REPO, "results", "parity_r5")
 HARD_QPS = os.path.join(REPO, "tests", "fixtures", "hard_qps_f32.npz")
 B_MAIN, N, M, QP_ITER = 4096, 20, 5, 6
 CAPTURE_TICKS = (0, 10, 30)
@@ -71,6 +75,7 @@ TICKS10, TICKS_DEMO = 100, 200
 
 
 _LAP = [time.time()]
+START = _LAP[0]
 
 
 def lap():
@@ -150,12 +155,143 @@ def seeded_lqrs(torch, dev, nb=B_MAIN, n=N, seed=0):
         rng.standard_normal((nb, 5)))]
 
 
-def mcnemar_z(ours, ref):
-    """McNemar z on paired 0/1 outcomes: |b - c| / sqrt(b + c) over the
-    discordant seeds (0 when there are none)."""
-    b = int(((ours == 1) & (ref == 0)).sum())
-    c = int(((ours == 0) & (ref == 1)).sum())
-    return abs(b - c) / (b + c) ** 0.5 if b + c else 0.0
+def replay_counted(parity, kernels, leg, s, cells, dev):
+    """Replay ``cells`` of ``leg`` with settings ``s`` through
+    ``sim/parity.py``, one entry of ``parity.plan`` (cells that differ only
+    in their scenario, as one batch) at a time, with the launch counts of
+    ``kernels`` (K1's and K2's wrappers) set to 0 just before each run and
+    read just after it. Returns the ``CellResult`` per cell and one record
+    per run."""
+    n_runs = parity.runs_of(leg, s)
+    results, runs = [], []
+    for group in parity.plan(cells, s):
+        for k in kernels:
+            k.launches = 0
+        rows, _, wall = parity.run_group(group, s, n_runs, dev)
+        runs.append(dict(cells=[f"{c['stamp']}_{c['scenario']}" for c in group],
+                         rows=n_runs * len(rows), launches=[k.launches for k in kernels],
+                         wall_s=wall))
+        results += [parity.CellResult(c, rows[c["scenario"]], wall) for c in group]
+    return results, runs
+
+
+def check_replay(tag, parity, results, runs, launches, leg_bound=None):
+    """The gates of a replayed leg: each run launched the kernels
+    ``launches`` times (K1, K2), every row is finite, each cell lies within
+    0.10 of its TPU CSV in hit and in reached, and, with ``leg_bound``, the
+    cells' seeds together within it. Returns the cells' statistics
+    (``parity.cell_stats``) and their aggregate."""
+    import numpy as np
+
+    for r in runs:
+        _check(r["launches"] == list(launches),
+               f"{tag}: run of {r['cells']} launched K1, K2 {r['launches']} times, "
+               f"expected {list(launches)}")
+    stats = []
+    for res in results:
+        st = parity.cell_stats(res)
+        _check(res.rows.shape == (st["runs"], 7) and np.isfinite(res.rows).all(),
+               f"{tag} {st['stamp']}_{st['scenario']}: rows not ({st['runs']}, 7) and finite")
+        _check(abs(st["hit"] - st["tpu_hit"]) <= 0.10
+               and abs(st["reached"] - st["tpu_reached"]) <= 0.10,
+               f"{tag} {st['stamp']}_{st['scenario']}: rates off the TPU CSV: hit {st['hit']} vs "
+               f"{st['tpu_hit']}, reached {st['reached']} vs {st['tpu_reached']}")
+        stats.append(st)
+    agg = parity.aggregate(stats)
+    if leg_bound is not None:
+        _check(abs(agg["hit"] - agg["tpu_hit"]) <= leg_bound
+               and abs(agg["reached"] - agg["tpu_reached"]) <= leg_bound,
+               f"{tag}: aggregate rates off the TPU CSVs by more than {leg_bound}: {agg}")
+    return stats, agg
+
+
+def pairing_rounding(torch, parity, s, cell, dev, n_runs=100, max_ticks=60):
+    """Where ``cell``'s rows first round differently when they run behind
+    ``n_runs`` rows of the other scenario: both batches tick in lockstep on
+    the cell's worlds and noise until the first tick whose x0 differs in a
+    row of the cell (at most ``max_ticks``; x0, the warm start and the
+    obstacles); at that tick, from the states
+    before it (equal in those rows), each step of the tick is run at both
+    batch sizes. Returns the tick and, per step, the rows equal bit for bit
+    and the largest difference."""
+    import numpy as np
+    from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused
+    from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp
+    from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
+    from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
+    from doa_mpc_tpu_torch.sim.obstacles import ObstacleState, predict_trajectory, robot_start_goal
+    from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+
+    spec, opts = parity.cell_config(cell, s)
+    other = "RANDOM" if cell["scenario"] == "EDGE" else "EDGE"
+    worlds = [mt_experiment_batch(range(n_runs), spec, sc, max_iter=max_ticks)
+              for sc in (other, cell["scenario"])]
+    obst = ObstacleState(*(np.concatenate([w[0][i] for w in worlds]) for i in range(2)))
+    noise = torch.as_tensor(np.concatenate([w[1] for w in worlds], axis=1), device=dev)
+    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device=dev)
+    params = parity.cost_params(spec, s, torch.float32, dev)
+    start, goal = robot_start_goal(spec)
+    goal_t = torch.as_tensor(goal, dtype=torch.float32, device=dev)
+    sizes = (n_runs, 2 * n_runs)
+    tick = make_batched_tick(ctrl, goal, params, backend=s.backend)
+
+    def rows_equal(v):
+        a, p = v[n_runs].reshape(n_runs, -1), v[2 * n_runs][n_runs:].reshape(n_runs, -1)
+        return int((a == p).all(1).sum()), float((a.double() - p.double()).abs().max())
+
+    st = {b: init_loop_state(ctrl, start, goal, batch_shape=(b,),
+                             obst=ObstacleState(*(a[-b:] for a in obst))) for b in sizes}
+    def carried(state, b):
+        return torch.cat([a.reshape(b, -1) for a in (state.x0, *state.rti, state.obst.pos)], 1)
+
+    for t in range(max_ticks):
+        nxt = {b: tick(st[b], noise=noise[t, -b:]) for b in sizes}
+        if rows_equal({b: carried(nxt[b], b) for b in sizes})[0] < n_runs:
+            break
+        st = nxt
+    else:
+        return f"the state equal in every row for {max_ticks} ticks"
+    pred = {b: predict_trajectory(st[b].obst, spec, spec.n_solv,
+                                  compat_pred_bug=opts.compat_pred_bug).movedim(0, 1)
+            for b in sizes}
+    qps = {b: OcpQp(*[a.contiguous() for a in ctrl.build_qp(st[b].rti, st[b].x0, goal_t,
+                                                           pred[b], params)]) for b in sizes}
+    sol = {b: solve_ocp_qp_fused(qps[b], iters=opts.qp_iter, structure=UNICYCLE_QP_STRUCTURE)
+           for b in sizes}
+    u0 = {b: st[b].rti.u_traj[:, 0] + sol[b].du[:, 0] for b in sizes}
+    steps = {
+        "state before it": {b: carried(st[b], b) for b in sizes},
+        "linearization (Phi, A, B)": {b: torch.cat([a.reshape(b, -1) for a in ctrl.lin(
+            st[b].rti.x_traj[:, :-1], st[b].rti.u_traj)], 1) for b in sizes},
+        "build_qp": {b: torch.cat([a.reshape(b, -1) for a in qps[b]], 1) for b in sizes},
+        "K1 (dx, du, s)": {b: torch.cat([sol[b].dx.reshape(b, -1), sol[b].du.reshape(b, -1),
+                                         sol[b].s.reshape(b, -1)], 1) for b in sizes},
+        "plant step": {b: ctrl.integrate(st[b].x0, u0[b]) for b in sizes},
+        "state after it": {b: carried(nxt[b], b) for b in sizes}}
+    return f"first differing tick {t + 1}; at it, rows equal (max|diff|): " + "; ".join(
+        f"{name} {n}/{n_runs} ({d:.2e})" for name, (n, d) in
+        ((name, rows_equal(v)) for name, v in steps.items()))
+
+
+def cell_line(st):
+    """One replayed cell, H100 against the TPU CSV."""
+    return (f"{st['stamp']}_{st['scenario']} TF {st['tf']} qp {st['qp_iter']}"
+            f"{' interp' if st['interpolate'] else ''} hit {st['hit']:.2f}/{st['tpu_hit']:.2f} "
+            f"reached {st['reached']:.2f}/{st['tpu_reached']:.2f} agree {st['agree_hit']:.2f}/"
+            f"{st['agree_reached']:.2f} z {st['hit_mcnemar_z']:.2f}")
+
+
+def leg_line(name, agg):
+    """A replayed leg's seeds together, H100 against the TPU CSVs."""
+    return (f"{name} {agg['seeds']} seeds: hit={agg['hit']:.3f} (TPU CSVs {agg['tpu_hit']:.3f}) "
+            f"reached={agg['reached']:.3f} (TPU CSVs {agg['tpu_reached']:.3f}); per-seed "
+            f"agreement hit={agg['agree_hit']:.3f} reached={agg['agree_reached']:.3f}; hit McNemar "
+            f"z={agg['hit_mcnemar_z']:.2f}")
+
+
+def runs_line(runs):
+    return "; ".join(f"{' + '.join(r['cells'])} ({r['rows']} rows) {r['wall_s']:.1f} s"
+                     for r in runs)
 
 
 def free_port():
@@ -211,7 +347,7 @@ def main():
     from doa_mpc_tpu_torch.rl import train as rl_train
     from doa_mpc_tpu_torch.rl.ddpg import DDPG, DDPGConfig, ReplayBuffer
     from doa_mpc_tpu_torch.rl.env import SubgoalEnv
-    from doa_mpc_tpu_torch.sim import evaluate, experiments
+    from doa_mpc_tpu_torch.sim import evaluate, experiments, parity
     from doa_mpc_tpu_torch.sim.closed_loop import (
         init_loop_state, make_batched_tick, make_parametric_tick, metrics_of)
     from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
@@ -336,30 +472,25 @@ def main():
           + f"; hard_qps finite (generic); card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 4: main path, seed-matched cell 20221031_215846 -------------
-    ref = np.loadtxt(PARITY_CSV, delimiter=";")
-    n_runs, max_iter = ref.shape[0], 400
-    solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
-    t0 = time.time()
-    data = run_scenario_batch(spec, opts, "RANDOM", n_runs=n_runs, max_iter=max_iter,
-                              dtype=torch.float32, backend="fused", compat_rng=True,
-                              device=dev)
-    wall = time.time() - t0
-    launches = solve_ocp_qp_fused.launches
-    _check(launches == max_iter, f"K1 launched {launches} times in {max_iter} ticks")
-    _check(riccati_solve_fused.launches == 0, "the fused path launched K2")
-    _check(data.shape == (n_runs, 6) and np.isfinite(data).all(), "non-finite metric rows")
-    np.savetxt(os.path.join(OUT_DIR, "20221031_215846_RANDOM_h100.csv"), data, delimiter=";")
-    hit, reached = data[:, 0].mean(), data[:, 1].mean()
-    ref_hit, ref_reached = ref[:, 0].mean(), ref[:, 1].mean()
-    agree_hit = (data[:, 0] == ref[:, 0]).mean()
-    agree_reached = (data[:, 1] == ref[:, 1]).mean()
-    _check(abs(hit - ref_hit) <= 0.10 and abs(reached - ref_reached) <= 0.10,
-           f"rates off the TPU f32 run: hit {hit} vs {ref_hit}, reached {reached} vs {ref_reached}")
-    print(f"phase 4 main path: {n_runs} seeds x {max_iter} ticks in {wall:.1f} s wall; "
-          f"hit={hit:.2f} (TPU CSV {ref_hit:.2f}) reached={reached:.2f} "
-          f"(TPU CSV {ref_reached:.2f}); per-seed agreement hit={agree_hit:.2f} "
-          f"reached={agree_reached:.2f}; K1 launches={launches} (unicycle); "
-          f"card={card}; wall {lap():.1f} s", flush=True)
+    # the leg prod_rk4_qp6 (rk4, fused, 6 IP iterations, f32) through
+    # sim/parity.py, the cell run alone
+    kernels = (solve_ocp_qp_fused, riccati_solve_fused)
+    leg_prod = parity.load_leg(os.path.join(PARITY_R5, "prod_rk4_qp6"))
+    s_prod = parity.leg_settings(leg_prod)
+    _check((s_prod.backend, s_prod.integrator, s_prod.qp_iter_override, s_prod.status4,
+            s_prod.f64) == ("fused", "rk4", QP_ITER, False, False),
+           f"prod_rk4_qp6 is not the rk4 fused f32 leg at {QP_ITER} IP iterations: {s_prod}")
+    cell4 = parity.select(leg_prod.cells, "215846")
+    res4, runs4 = replay_counted(parity, kernels, leg_prod, s_prod, cell4, dev)
+    (st4,), _ = check_replay("phase 4", parity, res4, runs4, (400, 0))
+    data, launches, wall = res4[0].rows, runs4[0]["launches"][0], runs4[0]["wall_s"]
+    parity.summarize(leg_prod, s_prod, res4, os.path.join(OUT_DIR, "phase4"), card)
+    print(f"phase 4 main path (sim/parity.py, prod_rk4_qp6 {st4['stamp']}_{st4['scenario']}, "
+          f"rk4, {QP_ITER} IP iters, f32): {st4['runs']} seeds x {s_prod.max_iter} ticks in "
+          f"{wall:.1f} s wall; hit={st4['hit']:.2f} (TPU CSV {st4['tpu_hit']:.2f}) "
+          f"reached={st4['reached']:.2f} (TPU CSV {st4['tpu_reached']:.2f}); per-seed agreement "
+          f"hit={st4['agree_hit']:.2f} reached={st4['agree_reached']:.2f}; K1 launches="
+          f"{launches} (unicycle); card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 5: throughput ------------------------------------------------
     # the fused rk4 ticks at B=4096 and B=1 are the bench's (the `bench`
@@ -511,32 +642,19 @@ def main():
           + f" | hard_qps 50 iters max mu {hard_mu:.2e}; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 7: the riccati path, seed-matched cell 20221031_215846 -------
-    solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
-    t0 = time.time()
-    data_r = run_scenario_batch(spec, opts, "RANDOM", n_runs=n_runs, max_iter=max_iter,
-                                dtype=torch.float32, backend="riccati", compat_rng=True,
-                                device=dev)
-    wall_r = time.time() - t0
-    k2_launches = riccati_solve_fused.launches
-    want_launches = max_iter * QP_ITER * 2
-    _check(k2_launches == want_launches,
-           f"K2 launched {k2_launches} times, expected {want_launches}")
-    _check(solve_ocp_qp_fused.launches == 0, "the riccati path launched K1")
-    _check(data_r.shape == (n_runs, 6) and np.isfinite(data_r).all(), "non-finite metric rows")
-    np.savetxt(os.path.join(OUT_DIR, "20221031_215846_RANDOM_h100_riccati.csv"), data_r,
-               delimiter=";")
-    hit_r, reached_r = data_r[:, 0].mean(), data_r[:, 1].mean()
-    _check(abs(hit_r - ref_hit) <= 0.10 and abs(reached_r - ref_reached) <= 0.10,
-           f"riccati path rates off the TPU f32 run: hit {hit_r} vs {ref_hit}, "
-           f"reached {reached_r} vs {ref_reached}")
-    print(f"phase 7 riccati path: {n_runs} seeds x {max_iter} ticks in {wall_r:.1f} s wall; "
-          f"hit={hit_r:.2f} (TPU CSV {ref_hit:.2f}) reached={reached_r:.2f} "
-          f"(TPU CSV {ref_reached:.2f}); per-seed agreement with the TPU CSV "
-          f"hit={(data_r[:, 0] == ref[:, 0]).mean():.2f} "
-          f"reached={(data_r[:, 1] == ref[:, 1]).mean():.2f}, with phase 4's fused run "
+    s7 = dataclasses.replace(s_prod, backend="riccati")
+    res7, runs7 = replay_counted(parity, kernels, leg_prod, s7, cell4, dev)
+    (st7,), _ = check_replay("phase 7", parity, res7, runs7, (0, 400 * QP_ITER * 2))
+    data_r = res7[0].rows
+    parity.summarize(leg_prod, s7, res7, os.path.join(OUT_DIR, "phase7"), card)
+    print(f"phase 7 riccati path (sim/parity.py --backend riccati): {st7['runs']} seeds x "
+          f"{s7.max_iter} ticks in {runs7[0]['wall_s']:.1f} s wall; hit={st7['hit']:.2f} (TPU CSV "
+          f"{st7['tpu_hit']:.2f}) reached={st7['reached']:.2f} (TPU CSV {st7['tpu_reached']:.2f}); "
+          f"per-seed agreement with the TPU CSV hit={st7['agree_hit']:.2f} "
+          f"reached={st7['agree_reached']:.2f}, with phase 4's fused run "
           f"hit={(data_r[:, 0] == data[:, 0]).mean():.2f} "
           f"reached={(data_r[:, 1] == data[:, 1]).mean():.2f} (reported, not checked); "
-          f"K2 launches={k2_launches}; card={card}; wall {lap():.1f} s", flush=True)
+          f"K2 launches={runs7[0]['launches'][1]}; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 8: solver-backend ticks and K2 time ---------------------------
     solver = dict(warmup=SOLVER_WARMUP, reps=SOLVER_REPS)
@@ -557,69 +675,33 @@ def main():
           f"version {k2_plain_ms:.3f} ms/call (B={B_MAIN}, N={N}, f32); card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 9: the IRK seed-matched leg, all 10 cells of v1_nostatus4 ----
-    with open(os.path.join(IRK_PARITY, "summary.json")) as f:
-        leg = json.load(f)
-    _check(leg["integrator"] == "irk" and leg["backend"] == "fused" and not leg["status4"]
-           and not leg["f64"], "results/parity_r5/v1_nostatus4 is not the IRK fused f32 leg")
-    out9 = os.path.join(OUT_DIR, "phase9")
-    os.makedirs(out9, exist_ok=True)
-    rows9, ours9, refs9 = [], [], []
-    for c in leg["cells"]:
-        cell = f"{c['stamp']}_{c['scenario']}"
-        ref = np.loadtxt(os.path.join(IRK_PARITY, f"{cell}_ours.csv"), delimiter=";")
-        cspec = WorldSpec(tf=c["tf"], n_solv=c["n_solv"], n_obst=c["n_obst"],
-                          qp_iter=c["qp_iter"])
-        copts = SolverOptions(qp_iter=c["qp_iter"], integrator="irk", compat_pred_bug=True,
-                              init_guess_when_error=False, compat_brake_bug=False,
-                              fail_mu_tol=leg["fail_mu_tol"], fail_stat_tol=leg["fail_stat_tol"],
-                              init_guess="interpolate" if c["interpolate"] else "current")
-        solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
-        t0 = time.time()
-        d = run_scenario_batch(cspec, copts, c["scenario"], n_runs=ref.shape[0], max_iter=400,
-                               dtype=torch.float32, backend="fused", compat_rng=True, device=dev)
-        wall_c = time.time() - t0
-        n_k1 = solve_ocp_qp_fused.launches
-        _check(n_k1 == 400 and riccati_solve_fused.launches == 0,
-               f"phase 9 {cell}: K1 launched {n_k1} times (K2 {riccati_solve_fused.launches}) "
-               f"in 400 ticks")
-        _check(d.shape == (ref.shape[0], 6) and np.isfinite(d).all(),
-               f"phase 9 {cell}: non-finite metric rows")
-        np.savetxt(os.path.join(out9, f"{cell}_h100.csv"), d, delimiter=";")
-        row = dict(cell=cell, tf=c["tf"], qp_iter=c["qp_iter"], interpolate=c["interpolate"],
-                   hit=d[:, 0].mean(), reached=d[:, 1].mean(), tpu_hit=ref[:, 0].mean(),
-                   tpu_reached=ref[:, 1].mean(), agree_hit=(d[:, 0] == ref[:, 0]).mean(),
-                   agree_reached=(d[:, 1] == ref[:, 1]).mean(),
-                   hit_mcnemar_z=mcnemar_z(d[:, 0], ref[:, 0]), wall_s=wall_c, launches=n_k1)
-        _check(abs(row["hit"] - row["tpu_hit"]) <= 0.10
-               and abs(row["reached"] - row["tpu_reached"]) <= 0.10,
-               f"phase 9 {cell}: rates off the TPU CSV: {row}")
-        rows9.append(row)
-        ours9.append(d)
-        refs9.append(ref)
-    ours9, refs9 = np.concatenate(ours9), np.concatenate(refs9)
-    agg = dict(hit=ours9[:, 0].mean(), reached=ours9[:, 1].mean(),
-               tpu_hit=refs9[:, 0].mean(), tpu_reached=refs9[:, 1].mean(),
-               agree_hit=(ours9[:, 0] == refs9[:, 0]).mean(),
-               agree_reached=(ours9[:, 1] == refs9[:, 1]).mean(),
-               hit_mcnemar_z=mcnemar_z(ours9[:, 0], refs9[:, 0]), seeds=len(ours9))
-    with open(os.path.join(out9, "phase9_cells.json"), "w") as f:
-        json.dump({"cells": rows9, "aggregate": agg}, f, indent=1)
-    _check(abs(agg["hit"] - agg["tpu_hit"]) <= 0.04
-           and abs(agg["reached"] - agg["tpu_reached"]) <= 0.04,
-           f"phase 9: aggregate rates off the TPU CSVs: {agg}")
-    print(f"phase 9 IRK seed-matched leg (v1_nostatus4: fused, 4-stage Gauss-Legendre IRK with 3 "
-          f"Newton iterations, status-4 off, compat_pred_bug, f32, 100 seeds x 400 ticks per "
-          f"cell): "
-          + "; ".join(f"{r['cell']} TF {r['tf']} qp {r['qp_iter']}"
-                      f"{' interp' if r['interpolate'] else ''} hit {r['hit']:.2f}/"
-                      f"{r['tpu_hit']:.2f} reached {r['reached']:.2f}/{r['tpu_reached']:.2f} "
-                      f"agree {r['agree_hit']:.2f}/{r['agree_reached']:.2f} z {r['hit_mcnemar_z']:.2f} "
-                      f"{r['wall_s']:.1f} s" for r in rows9)
-          + f" (H100/TPU CSV; per-seed agreement hit/reached; K1 launches 400 each) | "
-          f"{agg['seeds']} seeds: hit={agg['hit']:.3f} (TPU CSVs {agg['tpu_hit']:.3f}) "
-          f"reached={agg['reached']:.3f} (TPU CSVs {agg['tpu_reached']:.3f}); per-seed "
-          f"agreement hit={agg['agree_hit']:.3f} reached={agg['agree_reached']:.3f}; hit McNemar "
-          f"z={agg['hit_mcnemar_z']:.2f}; card={card}; wall {lap():.1f} s", flush=True)
+    # each RANDOM/EDGE pair as one batch of 200 rows; one cell also alone,
+    # to count the rows that pairing leaves as they were
+    leg9 = parity.load_leg(os.path.join(PARITY_R5, "v1_nostatus4"))
+    s9 = parity.leg_settings(leg9)
+    _check((s9.integrator, s9.backend, s9.status4, s9.f64) == ("irk", "fused", False, False),
+           f"results/parity_r5/v1_nostatus4 is not the IRK fused f32 leg: {s9}")
+    res9, runs9 = replay_counted(parity, kernels, leg9, s9, leg9.cells, dev)
+    stats9, agg9 = check_replay("phase 9", parity, res9, runs9, (400, 0), leg_bound=0.04)
+    parity.summarize(leg9, s9, res9, os.path.join(OUT_DIR, "phase9"), card)
+    alone9, runs9a = replay_counted(parity, kernels, leg9, s9,
+                                    parity.select(leg9.cells, "220136"), dev)
+    check_replay("phase 9 (alone)", parity, alone9, runs9a, (400, 0))
+    paired9 = next(r.rows for r in res9 if r.cell is alone9[0].cell)
+    same9 = int((paired9 == alone9[0].rows).all(1).sum())
+    outcome9 = int((paired9[:, [0, 1, 4, 5]] == alone9[0].rows[:, [0, 1, 4, 5]]).all(1).sum())
+    rounding9 = pairing_rounding(torch, parity, s9, alone9[0].cell, dev)
+    print(f"phase 9 IRK seed-matched leg (v1_nostatus4 through sim/parity.py: fused, 4-stage "
+          f"Gauss-Legendre IRK with 3 Newton iterations, status-4 off, compat_pred_bug, f32, 100 "
+          f"seeds x 400 ticks per cell; {len(runs9)} runs of a RANDOM/EDGE pair each, K1 "
+          f"launches 400 each): " + "; ".join(cell_line(st) for st in stats9)
+          + f" (H100/TPU CSV; per-seed agreement hit/reached) | runs: {runs_line(runs9)} | "
+          + leg_line("v1_nostatus4", agg9)
+          + f" | {alone9[0].cell['stamp']}_EDGE run alone ({runs9a[0]['wall_s']:.1f} s): "
+          f"{same9} of {len(paired9)} rows equal to its rows in the paired run, {outcome9} in "
+          f"hit, reached, steps and oob; its rows alone against behind 100 RANDOM rows, tick "
+          f"by tick: {rounding9}; card={card}; "
+          f"wall {lap():.1f} s", flush=True)
 
     # ---- phase 10: the sweeps' widest corners at full width ------------------
     out10 = os.path.join(OUT_DIR, "phase10")
@@ -855,87 +937,33 @@ def main():
     # ---- phase 13: the rk4 seed-matched legs through K1 -------------------------
     # prod_rk4_qp6 (the forecast typo kept) and prod_fixedbug (fixed): rk4,
     # fused, 6 IP iterations, status-4 off, f32, each cell's own TF, N, M and
-    # initial guess; phase 4 replayed cell 20221031_215846 of prod_rk4_qp6
+    # initial guess. At one IP budget the legs' cells differ only in TF,
+    # initial guess and scenario, so each leg is 3 runs of a RANDOM/EDGE pair
     out13 = os.path.join(OUT_DIR, "phase13")
-    os.makedirs(out13, exist_ok=True)
-    legs13, rows13 = {}, []
-    # phase 4 ran cell 20221031_215846 of prod_rk4_qp6 (RANDOM, TF 2, current)
-    runs13 = {("prod_rk4_qp6", "RANDOM", 2.0, N, M, False):
-              (data, launches, wall, "20221031_215846_RANDOM (phase 4)")}
-    for leg, pred_bug in (("prod_rk4_qp6", True), ("prod_fixedbug", False)):
-        ldir = os.path.join(REPO, "results", "parity_r5", leg)
-        with open(os.path.join(ldir, "summary.json")) as f:
-            summ = json.load(f)
-        _check(summ["integrator"] == "rk4" and summ["backend"] == "fused" and not summ["status4"]
-               and not summ["f64"], f"results/parity_r5/{leg} is not an rk4 fused f32 leg")
-        ours, refs = [], []
-        for c in summ["cells"]:
-            cell = f"{c['stamp']}_{c['scenario']}"
-            ref = np.loadtxt(os.path.join(ldir, f"{cell}_ours.csv"), delimiter=";")
-            # the cells differ in the reference's IP budget, which this leg
-            # fixes at 6, so cells with the same scenario, TF, N, M and
-            # initial guess are one configuration and share one run
-            key = (leg, c["scenario"], c["tf"], c["n_solv"], c["n_obst"], c["interpolate"])
-            if key not in runs13:
-                cspec = WorldSpec(tf=c["tf"], n_solv=c["n_solv"], n_obst=c["n_obst"],
-                                  qp_iter=QP_ITER)
-                copts = SolverOptions(qp_iter=QP_ITER, integrator="rk4",
-                                      compat_pred_bug=pred_bug,
-                                      init_guess="interpolate" if c["interpolate"] else "current")
-                solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
-                t0 = time.time()
-                d = run_scenario_batch(cspec, copts, c["scenario"], n_runs=ref.shape[0],
-                                       max_iter=400, dtype=torch.float32, backend="fused",
-                                       compat_rng=True, device=dev)
-                n_k1 = solve_ocp_qp_fused.launches
-                _check(n_k1 == 400 and riccati_solve_fused.launches == 0,
-                       f"phase 13 {leg} {cell}: K1 launched {n_k1} times "
-                       f"(K2 {riccati_solve_fused.launches}) in 400 ticks")
-                runs13[key] = (d, n_k1, time.time() - t0, cell)
-            d, n_k1, wall_c, run_cell = runs13[key]
-            _check(d.shape == (ref.shape[0], 6) and np.isfinite(d).all(),
-                   f"phase 13 {leg} {cell}: non-finite metric rows")
-            np.savetxt(os.path.join(out13, f"{leg}_{cell}_h100.csv"), d, delimiter=";")
-            row = dict(leg=leg, cell=cell, tf=c["tf"], interpolate=c["interpolate"],
-                       hit=d[:, 0].mean(), reached=d[:, 1].mean(), tpu_hit=ref[:, 0].mean(),
-                       tpu_reached=ref[:, 1].mean(), agree_hit=(d[:, 0] == ref[:, 0]).mean(),
-                       agree_reached=(d[:, 1] == ref[:, 1]).mean(),
-                       hit_mcnemar_z=mcnemar_z(d[:, 0], ref[:, 0]), wall_s=wall_c, launches=n_k1,
-                       run=run_cell)
-            _check(abs(row["hit"] - row["tpu_hit"]) <= 0.10
-                   and abs(row["reached"] - row["tpu_reached"]) <= 0.10,
-                   f"phase 13 {leg} {cell}: rates off the TPU CSV: {row}")
-            rows13.append(row)
-            ours.append(d)
-            refs.append(ref)
-        ours, refs = np.concatenate(ours), np.concatenate(refs)
-        legs13[leg] = dict(hit=ours[:, 0].mean(), reached=ours[:, 1].mean(),
-                           tpu_hit=refs[:, 0].mean(), tpu_reached=refs[:, 1].mean(),
-                           agree_hit=(ours[:, 0] == refs[:, 0]).mean(),
-                           agree_reached=(ours[:, 1] == refs[:, 1]).mean(),
-                           hit_mcnemar_z=mcnemar_z(ours[:, 0], refs[:, 0]), seeds=len(ours))
-        a = legs13[leg]
-        _check(abs(a["hit"] - a["tpu_hit"]) <= 0.04 and abs(a["reached"] - a["tpu_reached"]) <= 0.04,
-               f"phase 13 {leg}: aggregate rates off the TPU CSVs: {a}")
-    with open(os.path.join(out13, "phase13_cells.json"), "w") as f:
-        json.dump({"cells": rows13, "legs": legs13}, f, indent=1)
-    print(f"phase 13 rk4 seed-matched legs (fused, 6 IP iters, status-4 off, f32, 100 seeds x "
-          f"400 ticks per run, K1 launches 400 per run; {len(runs13)} runs for {len(rows13)} "
-          f"cells: cells of one configuration share its run, and 20221031_215846 of "
-          f"prod_rk4_qp6 is phase 4's): "
-          + "; ".join(f"{r['leg']} {r['cell']} TF {r['tf']}{' interp' if r['interpolate'] else ''}"
-                      f" hit {r['hit']:.2f}/{r['tpu_hit']:.2f} reached {r['reached']:.2f}/"
-                      f"{r['tpu_reached']:.2f} agree {r['agree_hit']:.2f}/{r['agree_reached']:.2f}"
-                      f" z {r['hit_mcnemar_z']:.2f} "
-                      + (f"{r['wall_s']:.1f} s" if r["run"] == r["cell"] else f"(run of {r['run']})")
-                      for r in rows13)
-          + " (H100/TPU CSV) | "
-          + "; ".join(f"{leg} {a['seeds']} seeds: hit={a['hit']:.3f} (TPU CSVs "
-                      f"{a['tpu_hit']:.3f}) reached={a['reached']:.3f} (TPU CSVs "
-                      f"{a['tpu_reached']:.3f}); agreement hit={a['agree_hit']:.3f} "
-                      f"reached={a['agree_reached']:.3f}; hit McNemar z={a['hit_mcnemar_z']:.2f}"
-                      for leg, a in legs13.items())
-          + f"; card={card}; wall {lap():.1f} s", flush=True)
+    legs13, lines13, runs13 = {}, [], []
+    for name in ("prod_rk4_qp6", "prod_fixedbug"):
+        leg = leg_prod if name == "prod_rk4_qp6" else parity.load_leg(
+            os.path.join(PARITY_R5, name))
+        s13 = parity.leg_settings(leg)
+        _check((s13.backend, s13.integrator, s13.qp_iter_override, s13.status4, s13.f64,
+                s13.fix_pred_bug) == ("fused", "rk4", QP_ITER, False, False,
+                                      name == "prod_fixedbug"),
+               f"results/parity_r5/{name} is not the rk4 fused f32 leg: {s13}")
+        res13, r13 = replay_counted(parity, kernels, leg, s13, leg.cells, dev)
+        stats13, legs13[name] = check_replay(f"phase 13 {name}", parity, res13, r13, (400, 0),
+                                             leg_bound=0.04)
+        parity.summarize(leg, s13, res13, os.path.join(out13, name), card)
+        lines13 += [f"{name} {cell_line(st)}" for st in stats13]
+        runs13 += [dict(r, cells=[f"{name} {c}" for c in r["cells"]]) for r in r13]
+        if name == "prod_rk4_qp6":
+            same13 = int((res13[0].rows == data).all(1).sum())
+            _check(res13[0].cell is cell4[0], "phase 13: the first cell is not phase 4's")
+    print(f"phase 13 rk4 seed-matched legs (sim/parity.py: fused, 6 IP iters, status-4 off, f32, "
+          f"100 seeds x 400 ticks per cell, K1 launches 400 per run; {len(runs13)} runs for "
+          f"{len(lines13)} cells): " + "; ".join(lines13) + f" (H100/TPU CSV) | runs: "
+          f"{runs_line(runs13)} | " + "; ".join(leg_line(n, a) for n, a in legs13.items())
+          + f" | prod_rk4_qp6 20221031_215846_RANDOM: {same13} of {len(data)} rows equal to "
+          f"phase 4's run of it alone; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 14: sharded campaigns through K1 ---------------------------------
     # the production campaign cell (TF 2.0, N 20, M 5, 6 IP iterations, rk4,
@@ -1033,6 +1061,68 @@ def main():
           f"{(d2[:, 0] == d_ref[:, 0]).mean():.2f} reached {(d2[:, 1] == d_ref[:, 1]).mean():.2f}"
           f"; card={card}; wall {lap():.1f} s", flush=True)
 
+    # ---- phase 15: the status-4 analogue with the plant brake through K1 ----
+    # the v0_baseline pair 20221031_215846 RANDOM + 20221031_220136 EDGE as one
+    # batch: IRK, fused, f32, status-4 armed with the brake, 100 IP
+    # iterations, TF 2, N 20, M 5, 200 rows x 400 ticks
+    leg15 = parity.load_leg(os.path.join(PARITY_R5, "v0_baseline"))
+    s15 = parity.leg_settings(leg15)
+    _check((s15.integrator, s15.backend, s15.status4, s15.f64) == ("irk", "fused", True, False),
+           f"results/parity_r5/v0_baseline is not the IRK fused f32 status-4 leg: {s15}")
+    cells15 = [c for c in leg15.cells if c["stamp"] in ("20221031_215846", "20221031_220136")]
+    res15, runs15 = replay_counted(parity, kernels, leg15, s15, cells15, dev)
+    _check(len(runs15) == 1 and runs15[0]["rows"] == 200,
+           f"phase 15: {len(runs15)} runs, expected one batch of 200 rows")
+    stats15, _ = check_replay("phase 15", parity, res15, runs15, (400, 0))
+    for st in stats15:
+        _check(0 < st["resets_mean"] and 0.5 * st["tpu_resets_mean"] <= st["resets_mean"]
+               <= 2 * st["tpu_resets_mean"],
+               f"phase 15 {st['stamp']}_{st['scenario']}: {st['resets_mean']} status-4 resets per "
+               f"run, the TPU CSV {st['tpu_resets_mean']} (0.5x-2x)")
+    parity.summarize(leg15, s15, res15, os.path.join(OUT_DIR, "phase15"), card)
+    print(f"phase 15 status-4 analogue with the plant brake (v0_baseline through sim/parity.py: "
+          f"fused, IRK, f32, {cells15[0]['qp_iter']} IP iters, fail mu < {s15.fail_mu:g} and stat "
+          f"< {s15.fail_stat:g}; one batch of {runs15[0]['rows']} rows x {s15.max_iter} ticks in "
+          f"{runs15[0]['wall_s']:.1f} s, K1 launches {runs15[0]['launches'][0]}, K2 "
+          f"{runs15[0]['launches'][1]}): "
+          + "; ".join(f"{cell_line(st)} resets per run {st['resets_mean']:.2f} (TPU CSV "
+                      f"{st['tpu_resets_mean']:.2f}, max {st['resets_max']})" for st in stats15)
+          + f" (H100/TPU CSV); card={card}; wall {lap():.1f} s", flush=True)
+
+    # ---- phase 16: the f64 IRK riccati tick (K2's f64 entry) against the CPU --
+    # the f64_nostatus4 leg's settings (IRK, f64, status-4 off, 100 IP
+    # iterations) through the riccati backend: cell 20221031_215846's first 8
+    # seeds, 4 ticks, on the card (K2's plain version and the plain Riccati
+    # sweep forbidden) and on the CPU
+    leg16 = parity.load_leg(os.path.join(PARITY_R5, "f64_nostatus4"))
+    s16 = parity.leg_settings(leg16, backend="riccati", seeds=8, max_iter=4)
+    cell16 = parity.select(leg16.cells, "215846")
+    _check((s16.integrator, s16.f64, s16.status4, cell16[0]["qp_iter"]) == ("irk", True, False, 100),
+           f"results/parity_r5/f64_nostatus4 is not the IRK f64 leg at 100 IP iterations: {s16}")
+    runs16 = {}
+    for where in (dev, torch.device("cpu")):
+        solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+        with (plain_forbidden(ip_qp, riccati_fused) if where.type == "cuda"
+              else contextlib.nullcontext()):
+            rows16, fin16, wall16 = parity.run_group(cell16, s16, s16.seeds, where)
+        runs16[where.type] = (rows16["RANDOM"], fin16.x0.cpu(), riccati_solve_fused.launches,
+                              solve_ocp_qp_fused.launches, wall16)
+    want16 = s16.max_iter * cell16[0]["qp_iter"] * 2
+    _check(runs16["cuda"][2:4] == (want16, 0) and runs16["cpu"][2:4] == (0, 0),
+           f"phase 16: K2, K1 launches {runs16['cuda'][2:4]} on the card (expected {want16}, 0), "
+           f"{runs16['cpu'][2:4]} on the CPU")
+    _check(runs16["cuda"][1].dtype == torch.float64, "phase 16: the card's run is not f64")
+    err16 = float((runs16["cuda"][1] - runs16["cpu"][1]).abs().max())
+    _check(err16 <= 1e-7, f"phase 16: card vs CPU x0 max|err| {err16:.3e} > 1e-7")
+    rows_err16 = float(np.abs(runs16["cuda"][0] - runs16["cpu"][0]).max())
+    print(f"phase 16 f64 IRK riccati tick (f64_nostatus4's settings, backend riccati, cell "
+          f"20221031_215846, {s16.seeds} seeds, {cell16[0]['qp_iter']} IP iters, "
+          f"{s16.max_iter} ticks): card vs CPU x0 max|err|={err16:.3e} (limit 1e-7), metric rows "
+          f"max|err|={rows_err16:.3e}; {runs16['cuda'][4]:.2f} s on the card ({runs16['cuda'][2]} "
+          f"K2 f64 launches = {s16.max_iter} x {cell16[0]['qp_iter']} x 2, no plain Riccati "
+          f"solve), {runs16['cpu'][4]:.2f} s on the CPU; card={card}; wall {lap():.1f} s",
+          flush=True)
+
     # bounds: each input byte read once and each output byte written once; the
     # operations the outputs need, counted from each kernel's own code on the
     # inputs it was timed on
@@ -1048,7 +1138,7 @@ def main():
           f"-> {k1_bound:.5f} ms ({k1_by}); K2 {k2_bytes} B and {k2_ops} operations -> "
           f"{k2_bound:.5f} ms ({k2_by}); against {HBM_BYTES_PER_S:.3g} B/s and "
           f"{F32_OPS_PER_S:.3g} f32 op/s (K1 counted in {count_s:.1f} s); card={card}; "
-          f"wall {lap():.1f} s",
+          f"wall {lap():.1f} s; phases {time.time() - START:.1f} s in all",
           flush=True)
 
     kernels = [{"name": "ip_solve_kernel<Unicycle>", "route": "cuda",

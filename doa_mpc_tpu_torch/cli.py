@@ -29,13 +29,16 @@ def _spec_args(p):
 
 def _run_args(p):
     p.add_argument("--backend", default="fused",
-                   choices=["fused", "torch", "riccati", "zero"],
+                   choices=["fused", "torch", "riccati", "zero", "auto"],
                    help="QP solve: 'fused' = the whole interior-point solve in "
                         "CUDA kernel K1 (JAX 'fused'); 'torch' = the "
                         "interior-point solver with the plain PyTorch Riccati "
                         "sweep (JAX 'xla'); 'riccati' = the same solver with "
                         "each Riccati solve in CUDA kernel K2 (JAX 'pallas'); "
-                        "'zero' skips the solve. On the CPU the kernels' plain "
+                        "'zero' skips the solve; 'auto' = 'fused' on a CUDA "
+                        "--device, 'torch' on the CPU (as JAX's 'auto' picks "
+                        "its kernel on a TPU, XLA elsewhere), so on a card it "
+                        "is the default. On the CPU the kernels' plain "
                         "PyTorch versions run")
     p.add_argument("--device", default="cuda")
     p.add_argument("--distributed", action="store_true",
@@ -68,6 +71,15 @@ def _resolve_mesh(args):
     if args.distributed:
         initialize()
     return make_data_mesh(None if args.device == "cuda" else [args.device])
+
+
+def resolve_backend(name: str, device) -> str:
+    """``--backend``: ``auto`` becomes ``fused`` on a CUDA device and
+    ``torch`` elsewhere; any other name stays."""
+    if name != "auto":
+        return name
+    import torch
+    return "fused" if torch.device(device).type == "cuda" else "torch"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,6 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if "backend" in args:
+        args.backend = resolve_backend(args.backend, args.device)
 
     if args.cmd == "experiment":
         import torch

@@ -11,6 +11,7 @@ plain version inside the same solver. So over 30 ticks the float64
 trajectories stay within 1e-6 and every discrete outcome agrees exactly,
 with the status-4 analogue off (the default) and on."""
 
+import dataclasses
 import functools
 import glob
 import json
@@ -45,18 +46,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, M, B, TICKS = 6, 3, 4, 30
 
 
-def _specs(qp_iter=6, status4=False, integrator="rk4"):
+def _specs(qp_iter=6, status4=False, integrator="rk4", knobs=()):
+    """Both packages' spec and options; ``knobs`` are further (field, value)
+    pairs of the options."""
     return (JSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
-            JOptions(qp_iter=qp_iter, integrator=integrator, init_guess_when_error=status4),
+            JOptions(qp_iter=qp_iter, integrator=integrator, init_guess_when_error=status4,
+                     **dict(knobs)),
             WorldSpec(tf=0.1 * N, n_solv=N, n_obst=M, qp_iter=qp_iter),
             SolverOptions(qp_iter=qp_iter, integrator=integrator,
-                          init_guess_when_error=status4))
+                          init_guess_when_error=status4, **dict(knobs)))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_rollout(status4=False, integrator="rk4"):
-    """Start state, noise and the JAX ``xla`` rollout's final state (numpy)."""
-    jspec, jopts, _, _ = _specs(status4=status4, integrator=integrator)
+def _jax_rollout(status4=False, integrator="rk4", knobs=(), slack_mult=1.0):
+    """Start state, noise and the JAX ``xla`` rollout's final state (numpy);
+    ``slack_mult`` scales the cost's ``slack_scale``."""
+    jspec, jopts, _, _ = _specs(status4=status4, integrator=integrator, knobs=knobs)
     jc = j_make(jspec, jopts, dtype=jnp.float64)
     start, goal = robot_start_goal(jspec)
     obst, noise = mt_experiment_batch(range(B), jspec, "RANDOM", max_iter=TICKS,
@@ -69,21 +74,24 @@ def _jax_rollout(status4=False, integrator="rk4"):
     x0[1, :4] = [6.2, 6.4, 0.7, 0.6]
     st = st._replace(x0=jnp.asarray(x0), rti=jax.vmap(
         lambda x: jc.initial_guess(x, jnp.asarray(goal)))(jnp.asarray(x0)))
-    final_j = jax.jit(j_rollout(jc, goal, j_params(jspec, dtype=jnp.float64),
+    jp = j_params(jspec, dtype=jnp.float64)
+    jp = dataclasses.replace(jp, slack_scale=jp.slack_scale * slack_mult)
+    final_j = jax.jit(j_rollout(jc, goal, jp,
                                 max_iter=TICKS, backend="xla",
                                 use_noise_traj=True))(st, jnp.asarray(noise))
     return (jax.tree.map(np.asarray, st), noise, goal,
             jax.tree.map(np.asarray, final_j))
 
 
-def _port_rollout(backend, status4=False, integrator="rk4"):
-    st, noise, goal, _ = _jax_rollout(status4, integrator)
-    _, _, spec, opts = _specs(status4=status4, integrator=integrator)
+def _port_rollout(backend, status4=False, integrator="rk4", knobs=(), slack_mult=1.0):
+    st, noise, goal, _ = _jax_rollout(status4, integrator, knobs, slack_mult)
+    _, _, spec, opts = _specs(status4=status4, integrator=integrator, knobs=knobs)
     tc = make_rti_controller(spec, opts, dtype=torch.float64, device="cpu")
     ts = interop.loop_state_from_numpy(st, "cpu", torch.float64)
-    return make_batched_rollout(
-        tc, goal, default_cost_params(spec, dtype=torch.float64, device="cpu"),
-        max_iter=TICKS, backend=backend, use_noise_traj=True)(ts, torch.as_tensor(noise))
+    params = default_cost_params(spec, dtype=torch.float64, device="cpu")
+    params = dataclasses.replace(params, slack_scale=params.slack_scale * slack_mult)
+    return make_batched_rollout(tc, goal, params, max_iter=TICKS, backend=backend,
+                                use_noise_traj=True)(ts, torch.as_tensor(noise))
 
 
 def _assert_final_close(final_t, final_j):
@@ -150,6 +158,22 @@ def test_status4_analogue_matches_jax_f64(backend):
     resets = np.asarray(final_j.resets)
     assert resets.sum() > 0 and (resets < TICKS).any()
     _assert_final_close(_port_rollout(backend, status4=True), final_j)
+
+
+@pytest.mark.parametrize("knobs,slack_mult", [
+    ((("slack_scale_dt", False),), 1.0),
+    ((("cost_scale_dt", False), ("lm_scale_dt", False)), 1.0),
+    ((("lm_scale_dt", False),), 1.0),
+    ((), 2.0),
+], ids=["slack_unscaled", "cost_unscaled", "lm_raw", "slack_mult_2"])
+def test_cost_scaling_conventions_match_jax_f64(knobs, slack_mult):
+    """The cost-scaling conventions of the parity matrix's legs v2-v5 (the
+    slack penalty, the whole stage cost and the Levenberg-Marquardt term
+    without the dt scale) and a doubled slack scale: the ``torch`` rollout
+    follows JAX's ``xla`` rollout in f64."""
+    final_j = _jax_rollout(knobs=knobs, slack_mult=slack_mult)[3]
+    assert not np.array_equal(np.asarray(final_j.x0), np.asarray(_jax_rollout()[3].x0))
+    _assert_final_close(_port_rollout("torch", knobs=knobs, slack_mult=slack_mult), final_j)
 
 
 def test_run_scenario_batch_compat_rows_match_jax():

@@ -393,6 +393,44 @@ def test_irk_fused_tick_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
 
 
+def test_status4_fused_irk_on_cuda_fires_and_goes_through_the_kernel(cuda, monkeypatch):
+    """The status-4 analogue with the plant brake (the parity legs v0 and
+    v2) on the fused IRK path: 6 IP iterations miss the fail tolerances, so
+    rows reset and brake; one K1 launch per tick, finite rows."""
+    def plain_on_a_card(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=6)
+    opts = SolverOptions(qp_iter=6, compat_pred_bug=True, init_guess_when_error=True,
+                         compat_brake_bug=True)
+    before = solve_ocp_qp_fused.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(ip_fused, "solve_ocp_qp_fused_ref", plain_on_a_card)
+        rows, final = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=20,
+                                         compat_rng=True, return_state=True, device=cuda)
+    assert solve_ocp_qp_fused.launches == before + 20
+    assert np.isfinite(rows).all() and rows.shape == (8, 6)
+    assert int(final.resets.sum()) > 0
+
+
+def test_f64_riccati_irk_tick_on_cuda_launches_k2_f64(cuda, monkeypatch):
+    """The f64 IRK closed loop through the riccati backend (the parity leg
+    f64_nostatus4 on the card): two launches of K2's f64 entry point per IP
+    iteration, no plain Riccati solve, and the CPU's rows."""
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=10)
+    opts = SolverOptions(qp_iter=10, compat_pred_bug=True)
+    kw = dict(n_runs=4, max_iter=2, dtype=torch.float64, backend="riccati", compat_rng=True)
+    before = riccati_solve_fused.launches
+    with monkeypatch.context() as mp:
+        _forbid_plain_riccati(mp)
+        gpu, fin = run_scenario_batch(spec, opts, "RANDOM", return_state=True, device=cuda, **kw)
+    assert riccati_solve_fused.launches == before + 2 * opts.qp_iter * 2
+    assert fin.x0.dtype == torch.float64
+    cpu, fin_cpu = run_scenario_batch(spec, opts, "RANDOM", return_state=True, device="cpu", **kw)
+    np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
+    np.testing.assert_allclose(fin.x0.cpu().numpy(), fin_cpu.x0.numpy(), rtol=0, atol=1e-7)
+
+
 def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
     """The f32 Newton iterations and LU solves on the card (TF32 off) land
     within 1e-5 of the float64 step on the CPU, and so do the sensitivities

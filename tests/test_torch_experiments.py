@@ -302,3 +302,21 @@ def test_cli_sweep_needs_a_card_by_default():
         pytest.skip("a CUDA device is present; the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["sweep", "--runs", "1"])
+
+
+def test_cli_backend_auto_resolves_by_device(tmp_path, monkeypatch):
+    """``--backend auto`` is ``torch`` on the CPU and ``fused`` on a CUDA
+    device (decided from the device's name; no card needed); the default
+    stays ``fused``, and the sweep's artifacts name the resolved backend."""
+    assert cli.resolve_backend("auto", "cpu") == "torch"
+    for name in ("cuda", "cuda:0", torch.device("cuda", 1)):
+        assert cli.resolve_backend("auto", name) == "fused"
+    assert cli.resolve_backend("riccati", "cpu") == "riccati"
+    assert cli.build_parser().parse_args(["sweep"]).backend == "fused"
+    _small_runs(monkeypatch)
+    monkeypatch.setattr(experiments, "run_qp_iter_sweep",
+                        functools.partial(experiments.run_qp_iter_sweep, qp_iters=(2,)))
+    out = tmp_path / "qp"
+    cli.main(["qp-sweep", "--device", "cpu", "--runs", "2", "--backend", "auto",
+              "--out", str(out)])
+    assert [s["backend"] for s, _ in _pairs(out)] == ["torch"]
