@@ -23,8 +23,10 @@ per-row goals on the card against the CPU; phase 12 trains the RL layer
 steps); in both, K2's plain version and the plain Riccati sweep raise if
 reached. Phase 13 replays the rk4 seed-matched legs ``prod_rk4_qp6`` and
 ``prod_fixedbug`` through K1. Every seed-matched replay (phases 4, 7, 9, 13
-and 15) runs through ``doa_mpc_tpu_torch/sim/parity.py``, the cells of one
-setting but for the scenario (a RANDOM/EDGE pair) as one batch. Phase 15
+and 15) runs through ``doa_mpc_tpu_torch/sim/parity.py`` and so through the
+campaign entry point ``sim/experiments.run_scenario_batch`` (its
+``compat_rng`` path), the cells of one setting but for the scenario (a
+RANDOM/EDGE pair) as one batch. Phase 15
 replays a status-4 pair of ``v0_baseline`` through K1 (the analogue armed
 with the plant brake), and phase 16 the f64 IRK tick of ``f64_nostatus4``
 through K2's f64 entry point against the CPU. Phase 14 runs the production campaign cell
@@ -157,21 +159,23 @@ def seeded_lqrs(torch, dev, nb=B_MAIN, n=N, seed=0):
 
 def replay_counted(parity, kernels, leg, s, cells, dev):
     """Replay ``cells`` of ``leg`` with settings ``s`` through
-    ``sim/parity.py``, one entry of ``parity.plan`` (cells that differ only
-    in their scenario, as one batch) at a time, with the launch counts of
-    ``kernels`` (K1's and K2's wrappers) set to 0 just before each run and
-    read just after it. Returns the ``CellResult`` per cell and one record
-    per run."""
-    n_runs = parity.runs_of(leg, s)
-    results, runs = [], []
-    for group in parity.plan(cells, s):
+    ``parity.replay`` (cells that differ only in their scenario, as one
+    batch), with the launch counts of ``kernels`` (K1's and K2's wrappers)
+    set to 0 just before each run and read just after it. Returns the
+    ``CellResult`` per cell and one record per run."""
+    launches = []
+
+    @contextlib.contextmanager
+    def counted(group):
         for k in kernels:
             k.launches = 0
-        rows, _, wall = parity.run_group(group, s, n_runs, dev)
-        runs.append(dict(cells=[f"{c['stamp']}_{c['scenario']}" for c in group],
-                         rows=n_runs * len(rows), launches=[k.launches for k in kernels],
-                         wall_s=wall))
-        results += [parity.CellResult(c, rows[c["scenario"]], wall) for c in group]
+        yield
+        launches.append([k.launches for k in kernels])
+
+    results = parity.replay(leg, s, cells, dev, each_run=counted)
+    firsts = [r for r in results if parity.cell_id(r.cell) == r.batch[0]]
+    runs = [dict(cells=list(r.batch), rows=r.batch_rows, launches=n, wall_s=r.wall_s)
+            for r, n in zip(firsts, launches)]
     return results, runs
 
 
@@ -203,74 +207,6 @@ def check_replay(tag, parity, results, runs, launches, leg_bound=None):
                and abs(agg["reached"] - agg["tpu_reached"]) <= leg_bound,
                f"{tag}: aggregate rates off the TPU CSVs by more than {leg_bound}: {agg}")
     return stats, agg
-
-
-def pairing_rounding(torch, parity, s, cell, dev, n_runs=100, max_ticks=60):
-    """Where ``cell``'s rows first round differently when they run behind
-    ``n_runs`` rows of the other scenario: both batches tick in lockstep on
-    the cell's worlds and noise until the first tick whose x0 differs in a
-    row of the cell (at most ``max_ticks``; x0, the warm start and the
-    obstacles); at that tick, from the states
-    before it (equal in those rows), each step of the tick is run at both
-    batch sizes. Returns the tick and, per step, the rows equal bit for bit
-    and the largest difference."""
-    import numpy as np
-    from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused
-    from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp
-    from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
-    from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
-    from doa_mpc_tpu_torch.sim.obstacles import ObstacleState, predict_trajectory, robot_start_goal
-    from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
-
-    spec, opts = parity.cell_config(cell, s)
-    other = "RANDOM" if cell["scenario"] == "EDGE" else "EDGE"
-    worlds = [mt_experiment_batch(range(n_runs), spec, sc, max_iter=max_ticks)
-              for sc in (other, cell["scenario"])]
-    obst = ObstacleState(*(np.concatenate([w[0][i] for w in worlds]) for i in range(2)))
-    noise = torch.as_tensor(np.concatenate([w[1] for w in worlds], axis=1), device=dev)
-    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device=dev)
-    params = parity.cost_params(spec, s, torch.float32, dev)
-    start, goal = robot_start_goal(spec)
-    goal_t = torch.as_tensor(goal, dtype=torch.float32, device=dev)
-    sizes = (n_runs, 2 * n_runs)
-    tick = make_batched_tick(ctrl, goal, params, backend=s.backend)
-
-    def rows_equal(v):
-        a, p = v[n_runs].reshape(n_runs, -1), v[2 * n_runs][n_runs:].reshape(n_runs, -1)
-        return int((a == p).all(1).sum()), float((a.double() - p.double()).abs().max())
-
-    st = {b: init_loop_state(ctrl, start, goal, batch_shape=(b,),
-                             obst=ObstacleState(*(a[-b:] for a in obst))) for b in sizes}
-    def carried(state, b):
-        return torch.cat([a.reshape(b, -1) for a in (state.x0, *state.rti, state.obst.pos)], 1)
-
-    for t in range(max_ticks):
-        nxt = {b: tick(st[b], noise=noise[t, -b:]) for b in sizes}
-        if rows_equal({b: carried(nxt[b], b) for b in sizes})[0] < n_runs:
-            break
-        st = nxt
-    else:
-        return f"the state equal in every row for {max_ticks} ticks"
-    pred = {b: predict_trajectory(st[b].obst, spec, spec.n_solv,
-                                  compat_pred_bug=opts.compat_pred_bug).movedim(0, 1)
-            for b in sizes}
-    qps = {b: OcpQp(*[a.contiguous() for a in ctrl.build_qp(st[b].rti, st[b].x0, goal_t,
-                                                           pred[b], params)]) for b in sizes}
-    sol = {b: solve_ocp_qp_fused(qps[b], iters=opts.qp_iter, structure=UNICYCLE_QP_STRUCTURE)
-           for b in sizes}
-    u0 = {b: st[b].rti.u_traj[:, 0] + sol[b].du[:, 0] for b in sizes}
-    steps = {
-        "state before it": {b: carried(st[b], b) for b in sizes},
-        "linearization (Phi, A, B)": {b: torch.cat([a.reshape(b, -1) for a in ctrl.lin(
-            st[b].rti.x_traj[:, :-1], st[b].rti.u_traj)], 1) for b in sizes},
-        "build_qp": {b: torch.cat([a.reshape(b, -1) for a in qps[b]], 1) for b in sizes},
-        "K1 (dx, du, s)": {b: torch.cat([sol[b].dx.reshape(b, -1), sol[b].du.reshape(b, -1),
-                                         sol[b].s.reshape(b, -1)], 1) for b in sizes},
-        "plant step": {b: ctrl.integrate(st[b].x0, u0[b]) for b in sizes},
-        "state after it": {b: carried(nxt[b], b) for b in sizes}}
-    return f"first differing tick {t + 1}; at it, rows equal (max|diff|): " + "; ".join(
-        f"{name} {n}/{n_runs} ({d:.2e})" for name, (n, d) in
-        ((name, rows_equal(v)) for name, v in steps.items()))
 
 
 def cell_line(st):
@@ -690,7 +626,6 @@ def main():
     paired9 = next(r.rows for r in res9 if r.cell is alone9[0].cell)
     same9 = int((paired9 == alone9[0].rows).all(1).sum())
     outcome9 = int((paired9[:, [0, 1, 4, 5]] == alone9[0].rows[:, [0, 1, 4, 5]]).all(1).sum())
-    rounding9 = pairing_rounding(torch, parity, s9, alone9[0].cell, dev)
     print(f"phase 9 IRK seed-matched leg (v1_nostatus4 through sim/parity.py: fused, 4-stage "
           f"Gauss-Legendre IRK with 3 Newton iterations, status-4 off, compat_pred_bug, f32, 100 "
           f"seeds x 400 ticks per cell; {len(runs9)} runs of a RANDOM/EDGE pair each, K1 "
@@ -699,8 +634,7 @@ def main():
           + leg_line("v1_nostatus4", agg9)
           + f" | {alone9[0].cell['stamp']}_EDGE run alone ({runs9a[0]['wall_s']:.1f} s): "
           f"{same9} of {len(paired9)} rows equal to its rows in the paired run, {outcome9} in "
-          f"hit, reached, steps and oob; its rows alone against behind 100 RANDOM rows, tick "
-          f"by tick: {rounding9}; card={card}; "
+          f"hit, reached, steps and oob; card={card}; "
           f"wall {lap():.1f} s", flush=True)
 
     # ---- phase 10: the sweeps' widest corners at full width ------------------

@@ -33,11 +33,11 @@ from doa_mpc_tpu_torch.parallel import distributed, mesh as pmesh
 from doa_mpc_tpu_torch.sim.closed_loop import (
     init_loop_state, make_batched_rollout, metrics_of,
 )
-from doa_mpc_tpu_torch.sim.obstacles import robot_start_goal
+from doa_mpc_tpu_torch.sim.obstacles import ObstacleState, robot_start_goal
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
 
 
-def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
+def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str | Sequence[str],
                        n_runs: int = 100, max_iter: int = 400,
                        seed: int = 0, dtype=torch.float32,
                        params: CostParams | None = None,
@@ -52,7 +52,11 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
     the reference CSV column order, and with ``return_state`` also the final
     ``LoopState``. ``compat_rng`` replays the reference's MT19937 worlds and
     noise (row i uses ``np.random.seed(i)``); otherwise worlds and noise come from
-    a ``torch.Generator`` seeded with ``seed``. ``backend`` is one of
+    a ``torch.Generator`` seeded with ``seed``. With ``compat_rng``,
+    ``scenario`` may be a sequence: its scenarios' worlds and noise are
+    concatenated into one rollout, ``n_runs`` rows each in its order (the
+    scenario only places the obstacles; ``sim.parity`` runs a cell's
+    RANDOM and EDGE seeds so). ``backend`` is one of
     ``sim.closed_loop.BACKENDS`` ('fused', 'torch', 'riccati', 'zero').
 
     With ``mesh`` (``parallel.mesh.make_data_mesh``) the rows run on the
@@ -66,6 +70,8 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
     mesh device. ``compat_rng`` does not combine with ``mesh``."""
     if compat_rng and mesh is not None:
         raise ValueError("compat_rng does not support mesh sharding")
+    if not compat_rng and not isinstance(scenario, str):
+        raise ValueError("a sequence of scenarios needs compat_rng")
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
     params = params or default_cost_params(spec, dtype=dtype, device=dev)
@@ -88,10 +94,13 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
 
     if compat_rng:
         from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
-        obst, noise = mt_experiment_batch(
-            range(n_runs), spec, scenario, max_iter=max_iter,
-            dtype=np.float64 if dtype == torch.float64 else np.float32)
-        state = init_loop_state(ctrl, start, goal, scenario, batch_shape=(n_runs,),
+        scenarios = [scenario] if isinstance(scenario, str) else list(scenario)
+        streams = [mt_experiment_batch(range(n_runs), spec, s, max_iter=max_iter,
+                                       dtype=np.float64 if dtype == torch.float64 else np.float32)
+                   for s in scenarios]
+        obst = ObstacleState(*(np.concatenate([o[i] for o, _ in streams]) for i in range(2)))
+        noise = np.concatenate([n for _, n in streams], axis=1)
+        state = init_loop_state(ctrl, start, goal, batch_shape=(len(scenarios) * n_runs,),
                                 obst=obst)
         rollout = make_batched_rollout(ctrl, goal, params, max_iter=max_iter,
                                        backend=backend, use_noise_traj=True)

@@ -13,9 +13,15 @@ TPU CSV (the reference's own CSVs are not in the repository; its rates are
 the cells' ``ref_hit``/``ref_reached``).
 
 Cells whose settings coincide but for the scenario (the RANDOM and EDGE
-cells of one TF, N, M, IP budget and initial guess) run as one batch, their
-worlds and noise concatenated: with the worlds pinned, the scenario only
-places the obstacles, and every row is solved alone.
+cells of one TF, N, M, IP budget and initial guess) run as one batch through
+``sim.experiments.run_scenario_batch`` (its ``compat_rng`` path, the
+scenarios' worlds and noise concatenated): with the worlds pinned, the
+scenario only places the obstacles. On the CPU a paired row equals the row
+run alone bit for bit; on a card the rk4 rows do too, but some IRK ops
+round a row differently at another batch size, so an IRK cell's per-seed
+rows depend on what it was batched with. Each cell's record says which
+cells shared its run and how many rows the run had (``batch``,
+``batch_rows``).
 
     python -m doa_mpc_tpu_torch.sim.parity --leg results/parity_r5/v0_baseline --out DIR
 
@@ -27,6 +33,7 @@ them, ``--device cpu`` runs the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -37,10 +44,7 @@ import numpy as np
 import torch
 
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params, resolve_device
-from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_rollout, metrics_of
-from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch
-from doa_mpc_tpu_torch.sim.obstacles import ObstacleState, robot_start_goal
-from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
 from doa_mpc_tpu_torch.utils.profiling import device_label
 
 # the JAX backends and their counterparts here
@@ -96,6 +100,13 @@ class CellResult(NamedTuple):
     cell: dict
     rows: np.ndarray      # (n, 7): the reference's six columns and resets
     wall_s: float         # the seconds of the run that held the cell
+    batch: tuple = ()     # the cells of that run (cell_id), this one among them
+    batch_rows: int = 0   # the rows of that run
+
+
+def cell_id(cell: dict) -> str:
+    """``<stamp>_<scenario>``, as the cell's CSV is named."""
+    return f"{cell['stamp']}_{cell['scenario']}"
 
 
 def leg_name(leg_dir: str) -> str:
@@ -169,26 +180,19 @@ def plan(cells: list, s: Settings) -> list:
 
 def run_group(cells: list, s: Settings, n_runs: int, device="cuda"):
     """Run one entry of :func:`plan` as one batch of ``n_runs`` seeds per
-    scenario. Returns ``({scenario: (n_runs, 7) rows}, final LoopState,
-    seconds)``; the seconds span the rollout and its metric rows."""
+    scenario (``run_scenario_batch`` with ``compat_rng``). Returns
+    ``({scenario: (n_runs, 7) rows}, final LoopState, seconds)``; the
+    seconds span the whole call."""
     dev = resolve_device(device)
     spec, opts = cell_config(cells[0], s)
     dtype = torch.float64 if s.f64 else torch.float32
     scenarios = list(dict.fromkeys(c["scenario"] for c in cells))
-    streams = [mt_experiment_batch(range(n_runs), spec, sc, max_iter=s.max_iter,
-                                   dtype=np.float64 if s.f64 else np.float32)
-               for sc in scenarios]
-    obst = ObstacleState(*(np.concatenate([o[i] for o, _ in streams]) for i in range(2)))
-    noise = torch.as_tensor(np.concatenate([n for _, n in streams], axis=1), device=dev)
-    ctrl = make_rti_controller(spec, opts, dtype=dtype, device=dev)
-    params = cost_params(spec, s, dtype, dev)
-    start, goal = robot_start_goal(spec)
     t0 = time.time()
-    state = init_loop_state(ctrl, start, goal, batch_shape=(len(scenarios) * n_runs,), obst=obst)
-    final = make_batched_rollout(ctrl, goal, params, max_iter=s.max_iter, backend=s.backend,
-                                 use_noise_traj=True)(state, noise)
-    rows = torch.stack([a.to(torch.float64) for a in (*metrics_of(final), final.resets)],
-                       dim=1).cpu().numpy()
+    data, final = run_scenario_batch(
+        spec, opts, scenarios, n_runs=n_runs, max_iter=s.max_iter, dtype=dtype,
+        params=cost_params(spec, s, dtype, dev), backend=s.backend, return_state=True,
+        compat_rng=True, device=dev)
+    rows = np.column_stack([data, final.resets.cpu().numpy().astype(np.float64)])
     wall = time.time() - t0
     return ({sc: rows[i * n_runs:(i + 1) * n_runs] for i, sc in enumerate(scenarios)},
             final, wall)
@@ -205,14 +209,20 @@ def runs_of(leg: Leg, s: Settings) -> int:
     return min(n, s.seeds) if s.seeds else n
 
 
-def replay(leg: Leg, s: Settings, device="cuda", only: str | None = None) -> list:
-    """Run the leg's cells (those :func:`select` keeps), one batch per entry
-    of :func:`plan`; returns a :class:`CellResult` per cell."""
+def replay(leg: Leg, s: Settings, cells: list | None = None, device="cuda",
+           each_run=None) -> list:
+    """Run ``cells`` (default: all the leg's), one batch per entry of
+    :func:`plan`; returns a :class:`CellResult` per cell. ``each_run``, a
+    context-manager factory, is entered with each run's cells around the
+    run (a caller counts kernel launches per run so)."""
     n_runs = runs_of(leg, s)
     out = []
-    for group in plan(select(leg.cells, only), s):
-        rows, _, wall = run_group(group, s, n_runs, device)
-        out += [CellResult(c, rows[c["scenario"]], wall) for c in group]
+    for group in plan(leg.cells if cells is None else cells, s):
+        with (each_run or contextlib.nullcontext)(group):
+            rows, _, wall = run_group(group, s, n_runs, device)
+        batch = tuple(cell_id(c) for c in group)
+        out += [CellResult(c, rows[c["scenario"]], wall, batch, n_runs * len(rows))
+                for c in group]
     return out
 
 
@@ -223,7 +233,8 @@ def _mcnemar_z(b: int, c: int) -> float:
 def cell_stats(res: CellResult) -> dict:
     """The JAX replay script's cell record (``parity_seedmatch.py``), its per-seed
     comparisons taken against the TPU CSV, plus ``tpu_hit``,
-    ``tpu_reached``, ``tpu_resets_mean`` and ``wall_s``."""
+    ``tpu_reached``, ``tpu_resets_mean``, ``wall_s`` and the run's
+    ``batch`` and ``batch_rows``."""
     data = res.rows
     c = {k: v for k, v in res.cell.items()
          if k in ("stamp", "scenario", "tf", "n_solv", "n_obst", "qp_iter", "interpolate",
@@ -250,7 +261,8 @@ def cell_stats(res: CellResult) -> dict:
         resets_mean=float(data[:, 6].mean()), resets_max=int(data[:, 6].max()),
         runs=len(data), seedmatched=True,
         tpu_hit=float(tpu[:, 0].mean()), tpu_reached=float(tpu[:, 1].mean()),
-        tpu_resets_mean=float(tpu[:, 6].mean()), wall_s=float(res.wall_s))
+        tpu_resets_mean=float(tpu[:, 6].mean()), wall_s=float(res.wall_s),
+        batch=list(res.batch), batch_rows=int(res.batch_rows))
 
 
 def aggregate(stats: list) -> dict:
@@ -300,18 +312,21 @@ def summarize(leg: Leg, s: Settings, results: list, out_dir: str, device: str) -
                 f"doa_mpc_tpu_torch, backend={s.backend}, integrator={s.integrator}, "
                 f"{'f64' if s.f64 else 'f32'}, device {device}; row i of each cell uses the "
                 "reference's np.random.seed(i) streams verbatim; per-seed agreement, "
-                "discordant counts and McNemar z against the TPU CSV.\n\n"
+                "discordant counts and McNemar z against the TPU CSV; \"batch\" is the rows "
+                "of the run that held the cell (the cells of one setting run together; IRK "
+                "rows on a card depend on it).\n\n"
                 "| cell | scenario | TF | qp | init | ours hit | TPU hit | ref hit | "
                 "ours reached | TPU reached | ref reached | agree hit | agree reached | "
-                "hit z | resets ours / TPU | wall s |\n"
-                "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
+                "hit z | resets ours / TPU | batch | wall s |\n"
+                "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
         for r in rows:
             f.write(f"| {r['stamp']} | {r['scenario']} | {r['tf']} | {r['qp_iter']} | "
                     f"{'interp' if r['interpolate'] else 'current'} | {r['hit']:.1%} | "
                     f"{r['tpu_hit']:.1%} | {r['ref_hit']:.1%} | {r['reached']:.1%} | "
                     f"{r['tpu_reached']:.1%} | {r['ref_reached']:.1%} | {r['agree_hit']:.0%} | "
                     f"{r['agree_reached']:.0%} | {r['hit_mcnemar_z']:.2f} | "
-                    f"{r['resets_mean']:.2f} / {r['tpu_resets_mean']:.2f} | {r['wall_s']:.1f} |\n")
+                    f"{r['resets_mean']:.2f} / {r['tpu_resets_mean']:.2f} | {r['batch_rows']} | "
+                    f"{r['wall_s']:.1f} |\n")
     return summary
 
 
@@ -353,7 +368,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     device = device_label(dev)
     print(f"leg {leg.name}: {s} on {device}", flush=True)
-    results = replay(leg, s, device=dev, only=args.only)
+    results = replay(leg, s, select(leg.cells, args.only), device=dev)
     summary = summarize(leg, s, results, out, device)
     for r in summary["cells"]:
         print(f"{r['stamp']} {r['scenario']:6s} TF={r['tf']} qp={r['qp_iter']:3d}"

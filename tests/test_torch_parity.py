@@ -1,7 +1,7 @@
 """``doa_mpc_tpu_torch.sim.parity`` against ``scripts/parity_seedmatch.py``:
 the options it builds for every committed leg of the round-5 matrix, the
-paired RANDOM+EDGE batch against the two cells run apart, and the files
-``summarize`` writes, all on the CPU at tiny sizes."""
+paired RANDOM+EDGE batch against the two cells run apart and against JAX's
+rows, and the files ``summarize`` writes, all on the CPU at tiny sizes."""
 
 import glob
 import importlib
@@ -141,6 +141,40 @@ def test_paired_batch_equals_cells_run_apart():
         assert rows[c["scenario"]].shape == (3, 7) and np.isfinite(rows[c["scenario"]]).all()
 
 
+@pytest.mark.parametrize("settings", [dict(), dict(status4=True, slack_unscaled=True)],
+                         ids=["plain", "status4_slackraw"])
+def test_paired_rows_match_jax(settings):
+    """The rows of a paired RANDOM + EDGE run (``run_group``, through the
+    port's ``run_scenario_batch``) against JAX's ``run_scenario_batch`` on
+    each cell's compat_rng worlds alone (``xla``, f64, IRK): the discrete
+    columns and the resets exactly, margin and distance to 1e-6."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from doa_mpc_tpu.config import SolverOptions as JOptions, WorldSpec as JSpec
+    from doa_mpc_tpu.config import default_cost_params as j_params
+    from doa_mpc_tpu.sim.experiments import run_scenario_batch as j_run
+
+    s = parity.Settings(f64=True, max_iter=6, **settings)
+    cells = _small_cells()
+    rows, _, _ = parity.run_group(cells, s, 3, device="cpu")
+    fired = 0
+    for c in cells:
+        spec, opts = parity.cell_config(c, s)
+        jspec = JSpec(tf=spec.tf, n_solv=spec.n_solv, n_obst=spec.n_obst, qp_iter=spec.qp_iter)
+        jopts = JOptions(**dataclasses.asdict(opts))
+        jparams = j_params(jspec, dtype=jnp.float64)
+        want, fin = j_run(jspec, jopts, c["scenario"], n_runs=3, max_iter=s.max_iter,
+                          dtype=jnp.float64, params=jparams, backend="xla",
+                          return_state=True, compat_rng=True)
+        got = rows[c["scenario"]]
+        np.testing.assert_array_equal(got[:, [0, 1, 4, 5]], want[:, [0, 1, 4, 5]])
+        np.testing.assert_allclose(got[:, [2, 3]], want[:, [2, 3]], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got[:, 6], np.asarray(fin.resets, np.float64))
+        fired += int(got[:, 6].sum())
+    assert (fired > 0) == s.status4
+
+
 def test_summarize_writes_the_jax_schema(tmp_path):
     """``python -m doa_mpc_tpu_torch.sim.parity`` on a two-cell leg made
     here: a 7-column CSV per cell and a summary.json holding every key the
@@ -177,6 +211,8 @@ def test_summarize_writes_the_jax_schema(tmp_path):
         assert cell["hit_we_only"] == ((data[:, 0] == 1) & (ref[:, 0] == 0)).sum()
         assert cell["tpu_resets_mean"] == ref[:, 6].mean() and cell["runs"] == 3
         assert cell["hit_gap"] == cell["hit"] - 0.5 and cell["wall_s"] > 0
+        assert cell["batch"] == [parity.cell_id(c) for c in _small_cells()]
+        assert cell["batch_rows"] == 6
     assert written["aggregate"]["seeds"] == 6 and summary["cells"] == written["cells"]
     assert (out / "summary.md").read_text().count("| 20990101_") == 2
     parity.main(["--leg", str(leg_dir), "--device", "cpu", "--max-iter", "2", "--only", "EDGE",
@@ -184,3 +220,4 @@ def test_summarize_writes_the_jax_schema(tmp_path):
     merged = json.load(open(out / "summary.json"))["cells"]
     assert [c["scenario"] for c in merged] == ["RANDOM", "EDGE"]
     assert merged[0] == written["cells"][0] and merged[1] != written["cells"][1]
+    assert merged[1]["batch"] == ["20990101_000002_EDGE"] and merged[1]["batch_rows"] == 3
