@@ -6,16 +6,20 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds kernels K1 (``doa_mpc_tpu_torch/csrc/ip_solve.cu``, two
-instantiations: generic and unicycle structure) and K2
-(``doa_mpc_tpu_torch/csrc/riccati.cu``) with nvcc for sm_90a, and the
-operation counter ``csrc/op_count.cpp`` (``ops/op_count.py``) with g++, one
-compiler per source, all at once. It holds each kernel against its plain PyTorch
-version (K1 in both instantiations), and drives two paths through the
+instantiations: generic and unicycle structure), K2
+(``doa_mpc_tpu_torch/csrc/riccati.cu``) and K3
+(``doa_mpc_tpu_torch/csrc/irk_newton.cu``, the IRK Newton solve by block LU)
+with nvcc for sm_90a, and the operation counter ``csrc/op_count.cpp``
+(``ops/op_count.py``) with g++, one compiler per source, all at once. It
+holds each kernel against its plain PyTorch version (K1 in both
+instantiations; K3 on the Jacobians of a real IRK tick, f32 and f64, in
+phase 5), and drives two paths through the
 seed-matched Monte-Carlo cell ``20221031_215846`` (RANDOM, TF 2.0, N 20, M
 5, 100 seeds x 400 ticks, rk4, 6 IP iterations, f32): the ``fused`` backend
 (K1's unicycle instantiation, phase 4) and the ``riccati`` backend (the
 interior-point solver with K2, phase 7). Phases 9-10 replay the IRK leg
-and the sweeps' corners through K1. Phase 11 runs the single-scenario path
+and the sweeps' corners through K1 and K3; phase 9 also runs one IRK cell
+alone, whose rows must equal its rows in the paired run. Phase 11 runs the single-scenario path
 through K2 (``RtiController.rti_step``): the ``demo`` command's rollout
 (B=1, 20 IP iterations, 200 ticks) and the f64 parametric tick with
 per-row goals on the card against the CPU; phase 12 trains the RL layer
@@ -33,14 +37,16 @@ through K2's f64 entry point against the CPU. Phase 14 runs the production campa
 sharded (``parallel/``): in process over a one-card mesh against the
 unsharded run (identical rows, 400 K1 launches each, statistics equal to
 the rows' sums and minimum), then the ``experiment --distributed`` command
-as two gloo ranks on the card (one writer; rates within 0.10). Each path
+as two gloo ranks on the card (one writer; rates within 0.10), and the same
+cell with IRK unsharded and as two ranks (rows equal). Each path
 runs with the launch counts set to 0 just before it and read just after.
 It times the control ticks (phase 5 takes the fused ticks from the
 ``bench`` command's ``measure`` and prints its JSON line) and the kernels
 (device time from CUDA events around launches queued behind a spin kernel;
 K1 for each instantiation and K2 at B=4096 and B=1), computes each
 kernel's bound from its bytes and its counted operations
-(``utils/profiling.py``), and prints one line per phase.
+(``utils/profiling.py``), times K3 against the library's pivoted LU at
+the same shapes, and prints one line per phase.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result; it also does so without CUDA or
@@ -74,6 +80,9 @@ SOLVER_WARMUP, SOLVER_REPS = 5, 20
 # robot reaches the goal at tick 135): the ticks are host-bound, so the
 # script's time goes with ticks, not seeds
 TICKS10, TICKS_DEMO = 100, 200
+# K3 launches per IRK tick: 3 Newton solves and 1 sensitivity solve in the
+# linearization, 3 Newton solves in the plant step
+K3_PER_TICK = 7
 
 
 _LAP = [time.time()]
@@ -263,7 +272,7 @@ def main():
         _die("torch is not installed")
     if not torch.cuda.is_available():
         _die("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
-    for src in ("ip_solve.cu", "riccati.cu"):
+    for src in ("ip_solve.cu", "riccati.cu", "irk_newton.cu"):
         if not os.path.isfile(os.path.join(REPO, "doa_mpc_tpu_torch", "csrc", src)):
             _die("run from the root of a checkout: doa_mpc_tpu_torch/ is missing")
     sys.path.insert(0, REPO)
@@ -272,7 +281,8 @@ def main():
     import numpy as np
     from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
     from doa_mpc_tpu_torch import bench, cli
-    from doa_mpc_tpu_torch.ops import cuda_build, ip_fused, ip_qp, riccati_fused
+    from doa_mpc_tpu_torch.ops import cuda_build, integrators, ip_fused, ip_qp, riccati_fused
+    from doa_mpc_tpu_torch.ops.integrators import irk_newton_solve, irk_newton_solve_ref
     from doa_mpc_tpu_torch.ops.ip_fused import (
         GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
     from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
@@ -291,7 +301,8 @@ def main():
     from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
     from doa_mpc_tpu_torch.utils.profiling import (
-        F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes, time_fn)
+        F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes, irk_newton_bytes,
+        irk_newton_ops, time_fn)
 
     dev = torch.device("cuda", 0)
     card = device_label(dev)
@@ -303,25 +314,26 @@ def main():
     print(f"phase 1 device: card={card} torch={torch.__version__} "
           f"cuda={torch.version.cuda} nvcc={nvcc_v!r}; wall {lap():.1f} s", flush=True)
 
-    # ---- phase 2: build both kernels and the op counter at once ----------------
+    # ---- phase 2: build the three kernels and the op counter at once ----------
     def timed_build(build):
         t = time.time()
         path = build()
         return path, time.time() - t
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         builds = list(pool.map(timed_build, (ip_fused.build_kernel, riccati_fused.build_kernel,
-                                             OpCounter)))
+                                             integrators.build_kernel, OpCounter)))
     ip_fused._library()
     riccati_fused._library()
-    opc = builds[2][0]
+    integrators._library()
+    opc = builds[3][0]
     build_s = time.time() - t0
-    print(f"phase 2 build: K1, K2 and the op counter in {build_s:.2f} s (one compiler each, "
-          f"in parallel); "
+    print(f"phase 2 build: K1, K2, K3 and the op counter in {build_s:.2f} s (one compiler "
+          f"each, in parallel); "
           + "; ".join(f"{name} {sec:.2f} s -> {os.path.relpath(path, REPO)}, ptxas: "
                       + " | ".join(cuda_build.ptxas_report(path))
-                      for name, (path, sec) in zip(("K1", "K2"), builds[:2])), flush=True)
+                      for name, (path, sec) in zip(("K1", "K2", "K3"), builds[:3])), flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for sname, st in STRUCTURES.items():
         per_sm = ip_fused.occupancy(N, M, st)
@@ -410,7 +422,7 @@ def main():
     # ---- phase 4: main path, seed-matched cell 20221031_215846 -------------
     # the leg prod_rk4_qp6 (rk4, fused, 6 IP iterations, f32) through
     # sim/parity.py, the cell run alone
-    kernels = (solve_ocp_qp_fused, riccati_solve_fused)
+    kernels = (solve_ocp_qp_fused, riccati_solve_fused, irk_newton_solve)
     leg_prod = parity.load_leg(os.path.join(PARITY_R5, "prod_rk4_qp6"))
     s_prod = parity.leg_settings(leg_prod)
     _check((s_prod.backend, s_prod.integrator, s_prod.qp_iter_override, s_prod.status4,
@@ -418,7 +430,7 @@ def main():
            f"prod_rk4_qp6 is not the rk4 fused f32 leg at {QP_ITER} IP iterations: {s_prod}")
     cell4 = parity.select(leg_prod.cells, "215846")
     res4, runs4 = replay_counted(parity, kernels, leg_prod, s_prod, cell4, dev)
-    (st4,), _ = check_replay("phase 4", parity, res4, runs4, (400, 0))
+    (st4,), _ = check_replay("phase 4", parity, res4, runs4, (400, 0, 0))
     data, launches, wall = res4[0].rows, runs4[0]["launches"][0], runs4[0]["wall_s"]
     parity.summarize(leg_prod, s_prod, res4, os.path.join(OUT_DIR, "phase4"), card)
     print(f"phase 4 main path (sim/parity.py, prod_rk4_qp6 {st4['stamp']}_{st4['scenario']}, "
@@ -459,8 +471,93 @@ def main():
     # and the plant)
     ctrl_irk = make_rti_controller(spec, SolverOptions(qp_iter=QP_ITER, compat_pred_bug=True),
                                    dtype=torch.float32, device=dev)
+    irk_newton_solve.launches = 0
     irk_ms = {(b_, be): tick_ms(b_, be, ctrl_irk)
               for b_ in (B_MAIN, 1) for be in ("fused", "zero")}
+    k3_ticks = irk_newton_solve.launches
+    _check(k3_ticks > 0 and k3_ticks % K3_PER_TICK == 0,
+           f"phase 5: the IRK ticks launched K3 {k3_ticks} times, not {K3_PER_TICK} per tick")
+
+    # K3 on the Jacobians of a real IRK tick at B=4096: the linearization's
+    # first Newton solve and its sensitivity solve (B*N rows, k = 1 and 7)
+    # and the plant step's first (B rows, k = 1), captured from the tick
+    k3_in = []
+    real_k3 = integrators.irk_newton_solve
+
+    def capture_k3(Jf, A, h, rhs):
+        k3_in.append((Jf.clone(), A, h, rhs.clone()))
+        return real_k3(Jf, A, h, rhs)
+
+    # the wrapper counts its launch on the function its module name holds
+    capture_k3.launches = 0
+
+    gen3 = torch.Generator(device=dev).manual_seed(0)
+    st3 = init_loop_state(ctrl_irk, start, goal, batch_shape=(B_MAIN,), generator=gen3)
+    tk3 = make_batched_tick(ctrl_irk, goal, params, generator=gen3)
+    for _ in range(3):                    # past the cold start
+        st3 = tk3(st3)
+    integrators.irk_newton_solve = capture_k3
+    try:
+        tk3(st3)
+    finally:
+        integrators.irk_newton_solve = real_k3
+    torch.cuda.synchronize()
+    _check(len(k3_in) == K3_PER_TICK, f"phase 5: {len(k3_in)} K3 calls in one IRK tick")
+    k3_shapes = {"lin_k7": k3_in[3], "lin_k1": k3_in[0], "plant_k1": k3_in[4]}
+    _check(tuple(k3_shapes["lin_k7"][3].shape) == (B_MAIN * N, 4, 5, 7)
+           and tuple(k3_shapes["plant_k1"][3].shape) == (B_MAIN, 4, 5, 1),
+           f"phase 5: K3 inputs of shapes {[tuple(c[3].shape) for c in k3_in]}")
+    k3_rows, k3_err = {}, 0.0
+    for name, (Jf3, A3, h3, r3) in k3_shapes.items():
+        want64 = irk_newton_solve_ref(Jf3.double(), A3.double(), h3, r3.double())
+        got64 = irk_newton_solve(Jf3.double(), A3.double(), h3, r3.double())
+        got32 = irk_newton_solve(Jf3, A3, h3, r3)
+        plain32 = irk_newton_solve_ref(Jf3, A3, h3, r3)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want64.abs().max()))
+        rel64 = float((got64 - want64).abs().max()) / scale
+        e_k = float((got32.double() - want64).abs().max())
+        e_p = float((plain32.double() - want64).abs().max())
+        err32 = float((got32 - plain32).abs().max())
+        _check(rel64 <= 1e-12, f"K3 f64 {name}: relative max|kernel - plain| {rel64:.3e} > 1e-12")
+        _check(np.isfinite(e_k) and e_k <= max(2 * e_p, 1e-6),
+               f"K3 f32 {name}: {e_k:.3e} from the f64 plain output, plain f32 {e_p:.3e}")
+        k3_rows[name] = dict(rows=r3.shape[0], k=r3.shape[3], rel64=rel64, err32=err32, e_k=e_k,
+                             e_p=e_p)
+        if name == "lin_k7":
+            k3_err = err32
+    # device times: the kernel, its plain version, and the library's pivoted
+    # LU (lu_factor_ex + lu_solve on the dense 20x20 M) on the same inputs
+    k3_times = {}
+    for name in ("lin_k7", "plant_k1"):
+        Jf3, A3, h3, r3 = k3_shapes[name]
+        rows3, kk = r3.shape[0], r3.shape[3]
+        blocks = integrators._newton_blocks(A3, Jf3, h3)
+        M3 = blocks.transpose(-3, -2).reshape(rows3, 20, 20).contiguous()
+        b3 = r3.reshape(rows3, 20, kk).contiguous()
+
+        def library(M3=M3, b3=b3):
+            LU3, piv3, _ = torch.linalg.lu_factor_ex(M3)
+            return torch.linalg.lu_solve(LU3, piv3, b3)
+
+        lib_err = float((library().reshape(r3.shape).double()
+                         - irk_newton_solve_ref(Jf3.double(), A3.double(), h3,
+                                                r3.double())).abs().max())
+        nbytes = irk_newton_bytes(rows3, 4, kk, 4)
+        nops = rows3 * irk_newton_ops(4, kk)
+        bound3, by3 = bound(nbytes, nops)
+        k3_times[name] = dict(
+            rows=rows3, k=kk,
+            ms=kernel_device_ms(torch, lambda J=Jf3, A_=A3, h_=h3, r=r3: irk_newton_solve(
+                J, A_, h_, r), 20),
+            plain_ms=time_ms(torch, lambda J=Jf3, A_=A3, h_=h3, r=r3: irk_newton_solve_ref(
+                J, A_, h_, r), reps=3, warmup=1),
+            # the library pair blocks the host (a spin-queued timing cannot
+            # queue its calls), so it is timed with CUDA events around calls
+            library_ms=time_ms(torch, library, reps=20, warmup=2), library_err=lib_err,
+            bytes=nbytes, ops=nops, bound_ms=bound3, bound_by=by3)
+    with open(os.path.join(OUT_DIR, "phase5_k3.json"), "w") as f:
+        json.dump({"check": k3_rows, "times": k3_times}, f, indent=1)
     qp = captured[30]
     qp1 = OcpQp(*[a[:1].contiguous() for a in qp])
     uni = UNICYCLE_QP_STRUCTURE
@@ -502,7 +599,20 @@ def main():
           + "; ".join(f"{s_} B={b_} {v:.4f} ms" for (s_, b_), v in k1_dev.items())
           + f" | unicycle wrapper (normalize + launch, CUDA events) "
           f"{k1_call_ms:.4f} ms at B={B_MAIN}, {k1_call_ms_1:.4f} ms at B=1; plain version "
-          f"{plain_ms:.3f} ms/solve | peak mem {mem:.0f} MiB; card={card}; wall {lap():.1f} s", flush=True)
+          f"{plain_ms:.3f} ms/solve | K3 on a real IRK tick's inputs (B={B_MAIN}): "
+          + "; ".join(f"{k} ({v['rows']} rows, k={v['k']}) f64 rel max|kernel-plain| "
+                      f"{v['rel64']:.2e} (limit 1e-12), f32 max|kernel-plain| {v['err32']:.2e}, "
+                      f"vs f64 kernel/plain {v['e_k']:.2e}/{v['e_p']:.2e}"
+                      for k, v in k3_rows.items())
+          + "; device time (CUDA events behind a spin, 20 launches): "
+          + "; ".join(f"{k} ({v['rows']} rows, k={v['k']}) {v['ms']:.4f} ms, bound "
+                      f"{v['bound_ms']:.5f} ms ({v['bound_by']}: {v['bytes']} B, {v['ops']} "
+                      f"operations), plain version {v['plain_ms']:.3f} ms, library LU "
+                      f"(lu_factor_ex + lu_solve, CUDA events around 20 calls) "
+                      f"{v['library_ms']:.4f} ms (max|err| vs f64 "
+                      f"{v['library_err']:.1e})" for k, v in k3_times.items())
+          + f"; K3 launches in the IRK ticks {k3_ticks} ({K3_PER_TICK} per tick)"
+          f" | peak mem {mem:.0f} MiB; card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 6: K2 against its plain version --------------------------------
     # (a) seeded LQR batches with SPD costs, at the solver's full width
@@ -580,7 +690,7 @@ def main():
     # ---- phase 7: the riccati path, seed-matched cell 20221031_215846 -------
     s7 = dataclasses.replace(s_prod, backend="riccati")
     res7, runs7 = replay_counted(parity, kernels, leg_prod, s7, cell4, dev)
-    (st7,), _ = check_replay("phase 7", parity, res7, runs7, (0, 400 * QP_ITER * 2))
+    (st7,), _ = check_replay("phase 7", parity, res7, runs7, (0, 400 * QP_ITER * 2, 0))
     data_r = res7[0].rows
     parity.summarize(leg_prod, s7, res7, os.path.join(OUT_DIR, "phase7"), card)
     print(f"phase 7 riccati path (sim/parity.py --backend riccati): {st7['runs']} seeds x "
@@ -618,23 +728,26 @@ def main():
     _check((s9.integrator, s9.backend, s9.status4, s9.f64) == ("irk", "fused", False, False),
            f"results/parity_r5/v1_nostatus4 is not the IRK fused f32 leg: {s9}")
     res9, runs9 = replay_counted(parity, kernels, leg9, s9, leg9.cells, dev)
-    stats9, agg9 = check_replay("phase 9", parity, res9, runs9, (400, 0), leg_bound=0.04)
+    stats9, agg9 = check_replay("phase 9", parity, res9, runs9, (400, 0, 400 * K3_PER_TICK),
+                                leg_bound=0.04)
     parity.summarize(leg9, s9, res9, os.path.join(OUT_DIR, "phase9"), card)
     alone9, runs9a = replay_counted(parity, kernels, leg9, s9,
                                     parity.select(leg9.cells, "220136"), dev)
-    check_replay("phase 9 (alone)", parity, alone9, runs9a, (400, 0))
+    check_replay("phase 9 (alone)", parity, alone9, runs9a, (400, 0, 400 * K3_PER_TICK))
     paired9 = next(r.rows for r in res9 if r.cell is alone9[0].cell)
     same9 = int((paired9 == alone9[0].rows).all(1).sum())
     outcome9 = int((paired9[:, [0, 1, 4, 5]] == alone9[0].rows[:, [0, 1, 4, 5]]).all(1).sum())
+    _check(same9 == len(paired9), f"phase 9: {alone9[0].cell['stamp']}_EDGE run alone gives "
+                                  f"{same9} of {len(paired9)} rows equal to its paired rows")
     print(f"phase 9 IRK seed-matched leg (v1_nostatus4 through sim/parity.py: fused, 4-stage "
           f"Gauss-Legendre IRK with 3 Newton iterations, status-4 off, compat_pred_bug, f32, 100 "
           f"seeds x 400 ticks per cell; {len(runs9)} runs of a RANDOM/EDGE pair each, K1 "
-          f"launches 400 each): " + "; ".join(cell_line(st) for st in stats9)
+          f"launches 400 and K3 {400 * K3_PER_TICK} each): " + "; ".join(cell_line(st) for st in stats9)
           + f" (H100/TPU CSV; per-seed agreement hit/reached) | runs: {runs_line(runs9)} | "
           + leg_line("v1_nostatus4", agg9)
           + f" | {alone9[0].cell['stamp']}_EDGE run alone ({runs9a[0]['wall_s']:.1f} s): "
-          f"{same9} of {len(paired9)} rows equal to its rows in the paired run, {outcome9} in "
-          f"hit, reached, steps and oob; card={card}; "
+          f"{same9} of {len(paired9)} rows equal to its rows in the paired run (gate: all), "
+          f"{outcome9} in hit, reached, steps and oob; card={card}; "
           f"wall {lap():.1f} s", flush=True)
 
     # ---- phase 10: the sweeps' widest corners at full width ------------------
@@ -647,11 +760,13 @@ def main():
         """``run_scenario_batch`` with the launch counts set to 0 before each
         (configuration, scenario) and read after it."""
         solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+        irk_newton_solve.launches = 0
         t0 = time.time()
         d = run_batch(spec_, opts_, scenario, **kw)
         runs10.append(dict(N=spec_.n_solv, M=spec_.n_obst, qp_iter=opts_.qp_iter,
                            integrator=opts_.integrator, scenario=scenario,
                            k1=solve_ocp_qp_fused.launches, k2=riccati_solve_fused.launches,
+                           k3=irk_newton_solve.launches,
                            hit=d[:, 0].mean(), reached=d[:, 1].mean(), wall_s=time.time() - t0))
         return d
 
@@ -667,8 +782,10 @@ def main():
         experiments.run_scenario_batch = run_batch
     _check(len(runs10) == 10, f"phase 10: {len(runs10)} runs, expected 4 x 2 + 1 x 2")
     for r in runs10:
-        _check(r["k1"] == TICKS10 and r["k2"] == 0 and r["integrator"] == "irk",
-               f"phase 10: {r}: expected {TICKS10} K1 launches with IRK")
+        _check(r["k1"] == TICKS10 and r["k2"] == 0 and r["integrator"] == "irk"
+               and r["k3"] == TICKS10 * K3_PER_TICK,
+               f"phase 10: {r}: expected {TICKS10} K1 and {TICKS10 * K3_PER_TICK} K3 launches "
+               f"with IRK")
     ref_keys = {"slack", "random_move", "init_guess", "scenario", "TF", "N_SOLV", "N_OBST",
                 "QP_ITER"}
     summary10 = []
@@ -689,7 +806,7 @@ def main():
     _check(per_sm30 > 0 and ip_fused.workspace_floats(100, 30, 30, uni) == 0,
            "K1 at N=30, M=30 does not run from shared memory")
     print(f"phase 10 sweep corners (100 seeds x {TICKS10} ticks, IRK, fused, f32, RANDOM and "
-          f"EDGE; K1 launches {TICKS10} per run): "
+          f"EDGE; K1 launches {TICKS10}, K3 {TICKS10 * K3_PER_TICK} per run): "
           + "; ".join(f"N={r['N']} M={r['M']} qp {r['qp_iter']} {r['scenario']} hit "
                       f"{r['hit']:.2f} reached {r['reached']:.2f} {r['wall_s']:.1f} s"
                       for r in runs10)
@@ -884,8 +1001,8 @@ def main():
                                       name == "prod_fixedbug"),
                f"results/parity_r5/{name} is not the rk4 fused f32 leg: {s13}")
         res13, r13 = replay_counted(parity, kernels, leg, s13, leg.cells, dev)
-        stats13, legs13[name] = check_replay(f"phase 13 {name}", parity, res13, r13, (400, 0),
-                                             leg_bound=0.04)
+        stats13, legs13[name] = check_replay(f"phase 13 {name}", parity, res13, r13,
+                                             (400, 0, 0), leg_bound=0.04)
         parity.summarize(leg, s13, res13, os.path.join(out13, name), card)
         lines13 += [f"{name} {cell_line(st)}" for st in stats13]
         runs13 += [dict(r, cells=[f"{name} {c}" for c in r["cells"]]) for r in r13]
@@ -903,7 +1020,8 @@ def main():
     # the production campaign cell (TF 2.0, N 20, M 5, 6 IP iterations, rk4,
     # fused, f32, RANDOM, 100 seeds x 400 ticks, seed 0): (a) in process over
     # a one-card mesh and unsharded, (b) the experiment command as two
-    # processes of a gloo group, both on cuda:0 with 50 rows each
+    # processes of a gloo group, both on cuda:0 with 50 rows each, (c) (b)
+    # with IRK against the unsharded IRK run
     spec14 = WorldSpec(tf=2.0, n_solv=N, n_obst=M, qp_iter=QP_ITER)
     opts14 = SolverOptions(qp_iter=QP_ITER, integrator="rk4")
     sharded_rollout, stats14, runs14 = pmesh.make_sharded_rollout, [], {}
@@ -944,43 +1062,66 @@ def main():
     _check(st14 == want14, f"phase 14: stats {st14} are not the rows' sums and min {want14}")
     launches14 = runs14["mesh"][1]
 
-    out14 = os.path.join(OUT_DIR, "phase14")
-    shutil.rmtree(out14, ignore_errors=True)
-    port = free_port()
-    cmd14 = [sys.executable, "-m", "doa_mpc_tpu_torch", "experiment", "--distributed",
-             "--device", "cuda", "--runs", "100", "--max-iter", "400", "--qp-iter",
-             str(QP_ITER), "--scenarios", "RANDOM", "--out", out14]
-    t0 = time.time()
-    procs = [subprocess.Popen(cmd14, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True,
-                              env=dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                                       WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r)))
-             for r in range(2)]
-    try:
-        outs14 = [p.communicate(timeout=300)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall14b = time.time() - t0
-    for r, (p, out) in enumerate(zip(procs, outs14)):
-        with open(os.path.join(OUT_DIR, f"phase14_rank{r}.log"), "w") as f:
-            f.write(out)
-        _check(p.returncode == 0, f"phase 14 rank {r} exited {p.returncode}:\n{out[-3000:]}")
-    files14 = sorted(os.listdir(out14))
-    _check(len(files14) == 2 and files14[0].endswith("_experiment_data.csv")
-           and files14[1].endswith("_experiment_spec.json"),
-           f"phase 14: the two ranks wrote {files14}, expected one CSV/JSON pair")
-    summaries = [sum("collision=" in ln for ln in out.splitlines()) for out in outs14]
-    _check(summaries == [1, 0], f"phase 14: summary lines per rank {summaries}, expected [1, 0]")
-    d2 = np.loadtxt(os.path.join(out14, files14[0]), delimiter=";")
-    _check(d2.shape == (100, 6) and np.isfinite(d2).all(), f"phase 14: 2-rank rows {d2.shape}")
+    def two_ranks(integrator):
+        """The experiment command as two gloo ranks on cuda:0, 50 rows each:
+        (its rows, wall s)."""
+        out = os.path.join(OUT_DIR, f"phase14_{integrator}")
+        shutil.rmtree(out, ignore_errors=True)
+        port = free_port()
+        cmd = [sys.executable, "-m", "doa_mpc_tpu_torch", "experiment", "--distributed",
+               "--device", "cuda", "--runs", "100", "--max-iter", "400", "--qp-iter",
+               str(QP_ITER), "--integrator", integrator, "--scenarios", "RANDOM", "--out", out]
+        t0 = time.time()
+        procs = [subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, MASTER_ADDR="localhost",
+                                           MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
+                                           LOCAL_RANK=str(r)))
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            with open(os.path.join(OUT_DIR, f"phase14_{integrator}_rank{r}.log"), "w") as f:
+                f.write(o)
+            _check(p.returncode == 0,
+                   f"phase 14 {integrator} rank {r} exited {p.returncode}:\n{o[-3000:]}")
+        files = sorted(os.listdir(out))
+        _check(len(files) == 2 and files[0].endswith("_experiment_data.csv")
+               and files[1].endswith("_experiment_spec.json"),
+               f"phase 14 {integrator}: the two ranks wrote {files}, expected one CSV/JSON pair")
+        summaries = [sum("collision=" in ln for ln in o.splitlines()) for o in outs]
+        _check(summaries == [1, 0],
+               f"phase 14 {integrator}: summary lines per rank {summaries}, expected [1, 0]")
+        rows = np.loadtxt(os.path.join(out, files[0]), delimiter=";")
+        _check(rows.shape == (100, 6) and np.isfinite(rows).all(),
+               f"phase 14 {integrator}: 2-rank rows {rows.shape}")
+        return rows, wall
+
+    d2, wall14b = two_ranks("rk4")
     hit2, reached2 = d2[:, 0].mean(), d2[:, 1].mean()
     hit1, reached1 = d_ref[:, 0].mean(), d_ref[:, 1].mean()
     _check(abs(hit2 - hit1) <= 0.10 and abs(reached2 - reached1) <= 0.10,
            f"phase 14: 2 ranks hit {hit2} reached {reached2} against {hit1} {reached1} unsharded")
     same_rows = int((d2 == d_ref).all(1).sum())
+    # (c) the same cell with IRK (the default integrator): unsharded, then as
+    # two ranks, whose rows must be the unsharded rows
+    solve_ocp_qp_fused.launches = irk_newton_solve.launches = 0
+    t0 = time.time()
+    d_irk = run_scenario_batch(spec14, SolverOptions(qp_iter=QP_ITER, integrator="irk"),
+                               "RANDOM", n_runs=100, max_iter=400, dtype=torch.float32,
+                               backend="fused", device=dev)
+    wall14c, k14c = time.time() - t0, (solve_ocp_qp_fused.launches, irk_newton_solve.launches)
+    _check(k14c == (400, 400 * K3_PER_TICK), f"phase 14 IRK unsharded: K1, K3 launches {k14c}")
+    d2_irk, wall14d = two_ranks("irk")
+    same_irk = int((d2_irk == d_irk).all(1).sum())
+    _check(same_irk == 100, f"phase 14: the 2-rank IRK rows equal the unsharded rows in "
+                            f"{same_irk} of 100")
     print(f"phase 14 sharded campaigns (TF 2.0, N={N}, M={M}, {QP_ITER} IP iters, rk4, fused, "
           f"f32, RANDOM, 100 seeds x 400 ticks, seed 0): (a) one-card mesh "
           f"{runs14['mesh'][3]:.1f} s, unsharded {runs14['unsharded'][3]:.1f} s; rows identical "
@@ -993,7 +1134,10 @@ def main():
           f"{reached2:.2f} against {hit1:.2f} {reached1:.2f} unsharded; rows identical to the "
           f"unsharded run: {same_rows} of 100, per-seed agreement hit "
           f"{(d2[:, 0] == d_ref[:, 0]).mean():.2f} reached {(d2[:, 1] == d_ref[:, 1]).mean():.2f}"
-          f"; card={card}; wall {lap():.1f} s", flush=True)
+          f" | (c) IRK: unsharded {wall14c:.1f} s (K1 {k14c[0]}, K3 {k14c[1]} launches), hit "
+          f"{d_irk[:, 0].mean():.2f} reached {d_irk[:, 1].mean():.2f}; 2 gloo ranks "
+          f"{wall14d:.1f} s, rows identical to the unsharded IRK run: {same_irk} of 100 (gate: "
+          f"all); card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 15: the status-4 analogue with the plant brake through K1 ----
     # the v0_baseline pair 20221031_215846 RANDOM + 20221031_220136 EDGE as one
@@ -1007,7 +1151,7 @@ def main():
     res15, runs15 = replay_counted(parity, kernels, leg15, s15, cells15, dev)
     _check(len(runs15) == 1 and runs15[0]["rows"] == 200,
            f"phase 15: {len(runs15)} runs, expected one batch of 200 rows")
-    stats15, _ = check_replay("phase 15", parity, res15, runs15, (400, 0))
+    stats15, _ = check_replay("phase 15", parity, res15, runs15, (400, 0, 400 * K3_PER_TICK))
     for st in stats15:
         _check(0 < st["resets_mean"] and 0.5 * st["tpu_resets_mean"] <= st["resets_mean"]
                <= 2 * st["tpu_resets_mean"],
@@ -1018,7 +1162,7 @@ def main():
           f"fused, IRK, f32, {cells15[0]['qp_iter']} IP iters, fail mu < {s15.fail_mu:g} and stat "
           f"< {s15.fail_stat:g}; one batch of {runs15[0]['rows']} rows x {s15.max_iter} ticks in "
           f"{runs15[0]['wall_s']:.1f} s, K1 launches {runs15[0]['launches'][0]}, K2 "
-          f"{runs15[0]['launches'][1]}): "
+          f"{runs15[0]['launches'][1]}, K3 {runs15[0]['launches'][2]}): "
           + "; ".join(f"{cell_line(st)} resets per run {st['resets_mean']:.2f} (TPU CSV "
                       f"{st['tpu_resets_mean']:.2f}, max {st['resets_max']})" for st in stats15)
           + f" (H100/TPU CSV); card={card}; wall {lap():.1f} s", flush=True)
@@ -1036,15 +1180,17 @@ def main():
     runs16 = {}
     for where in (dev, torch.device("cpu")):
         solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
+        irk_newton_solve.launches = 0
         with (plain_forbidden(ip_qp, riccati_fused) if where.type == "cuda"
               else contextlib.nullcontext()):
             rows16, fin16, wall16 = parity.run_group(cell16, s16, s16.seeds, where)
         runs16[where.type] = (rows16["RANDOM"], fin16.x0.cpu(), riccati_solve_fused.launches,
-                              solve_ocp_qp_fused.launches, wall16)
+                              solve_ocp_qp_fused.launches, irk_newton_solve.launches, wall16)
     want16 = s16.max_iter * cell16[0]["qp_iter"] * 2
-    _check(runs16["cuda"][2:4] == (want16, 0) and runs16["cpu"][2:4] == (0, 0),
-           f"phase 16: K2, K1 launches {runs16['cuda'][2:4]} on the card (expected {want16}, 0), "
-           f"{runs16['cpu'][2:4]} on the CPU")
+    want16_k3 = s16.max_iter * K3_PER_TICK
+    _check(runs16["cuda"][2:5] == (want16, 0, want16_k3) and runs16["cpu"][2:5] == (0, 0, 0),
+           f"phase 16: K2, K1, K3 launches {runs16['cuda'][2:5]} on the card (expected "
+           f"{want16}, 0, {want16_k3}), {runs16['cpu'][2:5]} on the CPU")
     _check(runs16["cuda"][1].dtype == torch.float64, "phase 16: the card's run is not f64")
     err16 = float((runs16["cuda"][1] - runs16["cpu"][1]).abs().max())
     _check(err16 <= 1e-7, f"phase 16: card vs CPU x0 max|err| {err16:.3e} > 1e-7")
@@ -1052,9 +1198,10 @@ def main():
     print(f"phase 16 f64 IRK riccati tick (f64_nostatus4's settings, backend riccati, cell "
           f"20221031_215846, {s16.seeds} seeds, {cell16[0]['qp_iter']} IP iters, "
           f"{s16.max_iter} ticks): card vs CPU x0 max|err|={err16:.3e} (limit 1e-7), metric rows "
-          f"max|err|={rows_err16:.3e}; {runs16['cuda'][4]:.2f} s on the card ({runs16['cuda'][2]} "
+          f"max|err|={rows_err16:.3e}; {runs16['cuda'][5]:.2f} s on the card ({runs16['cuda'][2]} "
           f"K2 f64 launches = {s16.max_iter} x {cell16[0]['qp_iter']} x 2, no plain Riccati "
-          f"solve), {runs16['cpu'][4]:.2f} s on the CPU; card={card}; wall {lap():.1f} s",
+          f"solve; {runs16['cuda'][4]} K3 f64 launches), {runs16['cpu'][5]:.2f} s on the CPU; "
+          f"card={card}; wall {lap():.1f} s",
           flush=True)
 
     # bounds: each input byte read once and each output byte written once; the
@@ -1086,7 +1233,17 @@ def main():
                 "replaces": "doa_mpc_tpu/ops/riccati_pallas.py:104",
                 "launches": k2_demo, "max_abs_err": k2_err,
                 "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-                "library_ms": None}]
+                "library_ms": None},
+               {"name": "irk_newton_kernel (K3; every launch of the IRK path counted, timed "
+                        "at the linearization's sensitivity solve: f32, s=4, k=7, B*N = 81,920 "
+                        "rows)", "route": "cuda",
+                "source": "doa_mpc_tpu_torch/csrc/irk_newton.cu",
+                "replaces": "doa_mpc_tpu/ops/integrators.py:218",
+                "launches": runs9a[0]["launches"][2], "max_abs_err": k3_err,
+                "ms": k3_times["lin_k7"]["ms"], "plain_ms": k3_times["lin_k7"]["plain_ms"],
+                "bound_ms": k3_times["lin_k7"]["bound_ms"],
+                "bound_by": k3_times["lin_k7"]["bound_by"],
+                "library_ms": k3_times["lin_k7"]["library_ms"]}]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

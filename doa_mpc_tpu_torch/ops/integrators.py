@@ -6,20 +6,28 @@
   the host) with a fixed number of full-Newton iterations on the stacked
   stage derivatives, as acados' IRK with a fixed ``newton_iter``.
 
-Everything broadcasts over leading batch dimensions. The IRK sensitivities
-come from the implicit-function theorem at the converged stage states, not
-from differentiating through the Newton iterations, and ``torch.func``
-reads them through :class:`_IrkSubstep`'s ``jvp``.
+Everything broadcasts over leading batch dimensions. The IRK Newton system
+is solved by the JAX package's block LU without pivoting, on CUDA tensors in
+one launch of kernel K3 (``csrc/irk_newton.cu``, :func:`irk_newton_solve`).
+The IRK sensitivities come from the implicit-function theorem at the
+converged stage states, not from differentiating through the Newton
+iterations: ``irk_step(..., sensitivities=True)`` returns them, and
+:func:`make_linearization` reads the controller's (Phi, A, B) from them,
+where rk4 is differentiated by ``torch.func.jacfwd``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import os
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
+
+from doa_mpc_tpu_torch.ops import cuda_build
 
 
 # ---------------------------------------------------------------------------
@@ -97,110 +105,262 @@ def rk4_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt,
 
 
 # ---------------------------------------------------------------------------
+# The collocation Newton solve: block LU without pivoting (kernel K3)
+# ---------------------------------------------------------------------------
+
+def _inv_small(D: torch.Tensor) -> torch.Tensor:
+    """Unrolled no-pivot Gauss-Jordan inverse of (..., n, n), n small."""
+    n = D.shape[-1]
+    eye = torch.eye(n, dtype=D.dtype, device=D.device).expand(D.shape)
+    aug = torch.cat([D, eye], dim=-1)
+    for k in range(n):
+        row = aug[..., k, :] / aug[..., k, k:k + 1]
+        aug[..., k, :] = row
+        col = aug[..., :, k].clone()
+        col[..., k] = 0.0
+        aug = aug - col[..., :, None] * row[..., None, :]
+    return aug[..., n:]
+
+
+def _newton_blocks(A: torch.Tensor, Jf: torch.Tensor, h) -> torch.Tensor:
+    """Blocks of the collocation Newton matrix: (..., s, s, nx, nx) with
+    M[i, j] = delta_ij I - h A_ij Jf_i (Jacobian of R_i = K_i - f(Z_i))."""
+    s, nx = Jf.shape[-3], Jf.shape[-1]
+    M = -h * A[:, :, None, None] * Jf[..., :, None, :, :]
+    eye = torch.eye(nx, dtype=Jf.dtype, device=Jf.device)
+    for k in range(s):
+        M[..., k, k, :, :] += eye
+    return M
+
+
+def _block_lu(M: torch.Tensor):
+    """Block LU without pivoting of (..., s, s, nx, nx).
+
+    Returns the packed factors (L with identity diagonal blocks strictly
+    below, the Schur-complement U on/above) plus the list of inverted
+    diagonal blocks (reused by every subsequent solve). Safe without
+    pivoting because M = I - h (A (x) Jf) with ||h A Jf|| << 1. The JAX
+    function updates a functional copy; this one updates a copy of ``M`` in
+    place.
+    """
+    s = M.shape[-4]
+    M = M.clone()
+    invd = []
+    for k in range(s):
+        ik = _inv_small(M[..., k, k, :, :])
+        invd.append(ik)
+        for i in range(k + 1, s):
+            Lik = M[..., i, k, :, :] @ ik
+            M[..., i, k, :, :] = Lik
+            for j in range(k + 1, s):
+                M[..., i, j, :, :] += -Lik @ M[..., k, j, :, :]
+    return M, invd
+
+
+def _block_solve(LU: torch.Tensor, invd, r: torch.Tensor) -> torch.Tensor:
+    """Solve the block-factored system for r of shape (..., s, nx)."""
+    s = LU.shape[-4]
+    y = []
+    for i in range(s):                       # forward, unit-block-lower
+        acc = r[..., i, :]
+        for j in range(i):
+            acc = acc - torch.einsum("...ab,...b->...a", LU[..., i, j, :, :], y[j])
+        y.append(acc)
+    xs = [None] * s
+    for k in reversed(range(s)):             # backward, block-upper
+        acc = y[k]
+        for j in range(k + 1, s):
+            acc = acc - torch.einsum("...ab,...b->...a", LU[..., k, j, :, :], xs[j])
+        xs[k] = torch.einsum("...ab,...b->...a", invd[k], acc)
+    return torch.stack(xs, dim=-2)
+
+
+def irk_newton_solve_ref(Jf: torch.Tensor, A: torch.Tensor, h, rhs: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K3: the blocks of M = I - h (A (x) Jf), their
+    block LU and the block-triangular solve M X = rhs, with JAX's functions'
+    order of operations. Jf (R, s, nx, nx), rhs (R, s, nx, k) -> (R, s, nx, k);
+    each of the k columns is solved as JAX solves one vector."""
+    LU, invd = _block_lu(_newton_blocks(A, Jf, h))
+    cols = rhs.movedim(-1, 1)                                  # (R, k, s, nx)
+    X = _block_solve(LU.unsqueeze(1), [ik.unsqueeze(1) for ik in invd], cols)
+    return X.movedim(1, -1)
+
+
+KERNEL_SOURCE = os.path.join(cuda_build.CSRC_DIR, "irk_newton.cu")
+K3_STAGES, K3_WIDTHS, K3_NX = (1, 2, 3, 4), (1, 7), 5
+
+
+def build_kernel() -> str:
+    """Compile ``csrc/irk_newton.cu`` into ``_build/`` at first use
+    (:func:`cuda_build.build`); returns the library path."""
+    return cuda_build.build(KERNEL_SOURCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(build_kernel())
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.irk_newton_f32, lib.irk_newton_f64):
+        fn.argtypes = [ptr, ptr, ctypes.c_double, ptr, ptr, i64, i32, i32, ptr]
+        fn.restype = i32
+    lib.irk_newton_error_string.argtypes = [i32]
+    lib.irk_newton_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_cuda_inputs(Jf, A, rhs) -> None:
+    """Raise on what kernel K3 does not take: a dtype other than float32 or
+    float64, mixed dtypes or devices, shapes other than Jf (R, s, 5, 5), A
+    (s, s), rhs (R, s, 5, k) with s in 1-4 and k in {1, 7}, or, after those,
+    an input that is not contiguous."""
+    if Jf.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel K3 takes float32 or float64; Jf is {Jf.dtype}")
+    for name, t in (("A", A), ("rhs", rhs)):
+        if t.dtype != Jf.dtype:
+            raise TypeError(f"{name} is {t.dtype}, Jf is {Jf.dtype}")
+        if t.device != Jf.device:
+            raise ValueError(f"{name} is on {t.device}, Jf on {Jf.device}")
+    if Jf.ndim != 4 or rhs.ndim != 4:
+        raise ValueError(f"kernel K3 takes Jf (R, s, nx, nx) and rhs (R, s, nx, k); got "
+                         f"{tuple(Jf.shape)} and {tuple(rhs.shape)}")
+    rows, s = Jf.shape[:2]
+    if s not in K3_STAGES or tuple(Jf.shape[2:]) != (K3_NX, K3_NX):
+        raise ValueError(f"kernel K3 is built for s in {K3_STAGES} and nx = {K3_NX}; Jf has "
+                         f"shape {tuple(Jf.shape)}")
+    if tuple(A.shape) != (s, s):
+        raise ValueError(f"A has shape {tuple(A.shape)}, expected {(s, s)}")
+    if tuple(rhs.shape[:3]) != (rows, s, K3_NX) or rhs.shape[3] not in K3_WIDTHS:
+        raise ValueError(f"rhs has shape {tuple(rhs.shape)}, expected {(rows, s, K3_NX)} + "
+                         f"(k,) with k in {K3_WIDTHS}")
+    for name, t in (("Jf", Jf), ("A", A), ("rhs", rhs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous: kernel K3 reads each row as one run")
+
+
+def irk_newton_solve(Jf: torch.Tensor, A: torch.Tensor, h, rhs: torch.Tensor) -> torch.Tensor:
+    """The collocation Newton solve M X = rhs, M = I - h (A (x) Jf) by blocks:
+    Jf (R, s, nx, nx), A (s, s), rhs (R, s, nx, k) -> X (R, s, nx, k).
+
+    CPU tensors run :func:`irk_newton_solve_ref`. CUDA tensors (float32 or
+    float64, nx = 5, s in 1-4, k in {1, 7}, contiguous) launch kernel K3
+    (``csrc/irk_newton.cu``) once, one thread per row, and add one to
+    ``irk_newton_solve.launches``; anything else raises."""
+    dev = Jf.device
+    if dev.type == "cpu":
+        return irk_newton_solve_ref(Jf, A, h, rhs)
+    if dev.type != "cuda":
+        raise ValueError(f"irk_newton_solve: unsupported device {dev}")
+    _check_cuda_inputs(Jf, A, rhs)
+    out = torch.empty_like(rhs)
+    lib = _library()
+    launch = lib.irk_newton_f32 if Jf.dtype == torch.float32 else lib.irk_newton_f64
+    with torch.cuda.device(dev):      # launch on the card that holds the data
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(Jf.data_ptr(), A.data_ptr(), float(h), rhs.data_ptr(), out.data_ptr(),
+                    rhs.shape[0], Jf.shape[1], rhs.shape[3], stream)
+    if rc != 0:
+        raise RuntimeError(f"irk_newton launch failed (rows={rhs.shape[0]}, s={Jf.shape[1]}, "
+                           f"k={rhs.shape[3]}): " + lib.irk_newton_error_string(rc).decode())
+    irk_newton_solve.launches += 1
+    return out
+
+
+irk_newton_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Implicit RK (collocation + fixed Newton)
 # ---------------------------------------------------------------------------
 
 def _stage_jacobians(f: Callable, Z: torch.Tensor, u: torch.Tensor, argnums):
     """Jacobians of f at each stage state, Z (..., s, nx), u (..., nu): one
-    (..., s, nx, n_arg) tensor per entry of ``argnums``."""
+    contiguous (..., s, nx, n_arg) tensor per entry of ``argnums``."""
     nx, nu = Z.shape[-1], u.shape[-1]
     u_b = u.unsqueeze(-2).expand(Z.shape[:-1] + (nu,))
     jac = vmap(jacfwd(f, argnums=argnums))(Z.reshape(-1, nx), u_b.reshape(-1, nu))
-    return [J.reshape(Z.shape + J.shape[-1:]) for J in jac]
+    # contiguous: kernel K3 reads each row's Jacobians as one run
+    return [J.reshape(Z.shape + J.shape[-1:]).contiguous() for J in jac]
 
 
-def _newton_lu(A: torch.Tensor, Jf: torch.Tensor, h):
-    """LU factors of the collocation Newton matrix M (..., s nx, s nx), whose
-    block (i, j) is delta_ij I - h A_ij Jf_i: the Jacobian of the residual
-    R_i = K_i - f(Z_i) in K_j."""
-    s, nx = Jf.shape[-3], Jf.shape[-1]
-    blocks = -h * A[:, :, None, None] * Jf.unsqueeze(-3)        # (..., s, s, nx, nx)
-    M = blocks.transpose(-3, -2).reshape(Jf.shape[:-3] + (s * nx, s * nx))
-    M = M + torch.eye(s * nx, dtype=M.dtype, device=M.device)
-    # the _ex form: lu_factor would wait for the card to check ``info``
-    LU, piv, _ = torch.linalg.lu_factor_ex(M)
-    return LU, piv
+def _ordered_sum(P: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of P over the stage axis ``dim``, added in the order 0, 1, ...
+    element by element: no matrix product, whose kernel (and summation
+    order) the library would pick by size, so a row's bits do not depend on
+    the batch."""
+    acc = P.select(dim, 0)
+    for j in range(1, P.shape[dim]):
+        acc = acc + P.select(dim, j)
+    return acc
 
 
 def _stage_states(x, K, A, h):
     """Z_i = x + h sum_j A_ij K_j, K (..., s, nx)."""
-    return x.unsqueeze(-2) + h * torch.einsum("ij,...jn->...in", A, K)
+    return x.unsqueeze(-2) + h * _ordered_sum(A[:, :, None] * K.unsqueeze(-3), -2)
 
 
-class _IrkSubstep(torch.autograd.Function):
-    """One collocation substep Phi(x, u) with its IFT sensitivities.
+def _irk_substep(f, x, u, h, A, b, newton_iter, sensitivities):
+    """One collocation substep over rows, x (R, nx), u (R, nu): Phi, and with
+    ``sensitivities`` also D = dPhi/d(x, u) (R, nx, nx + nu).
 
-    ``forward`` runs the fixed Newton iterations, then rebuilds M at the
-    converged stage states Z (K recomputed, Jf, Ju), factors it once and
-    solves M dK = [Jf | Ju] for all nx + nu directions at once. It returns
-    Phi and D = dPhi/d(x, u) = [I | 0] + h sum_j b_j dK_j (..., nx, nx + nu);
-    ``jvp`` reads D back from ``ctx.save_for_forward``. So under
-    ``vmap(jacfwd(...))`` M is factored once per stage point, whatever the
-    number of tangent directions. (The solve is not left to ``jvp``: under
-    nested ``vmap``, ``torch.linalg.lu_solve``'s batching rule returns
-    wrong values when the factors are batched at the outer level only.)
-    """
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x, u, f, h, A, b, newton_iter):
-        s, nx = A.shape[0], x.shape[-1]
-        u_stage = u.unsqueeze(-2)
-        f0 = f(x, u)
-        K = f0.unsqueeze(-2).expand(f0.shape[:-1] + (s, nx))
-        for _ in range(newton_iter):
-            Z = _stage_states(x, K, A, h)
-            R = K - f(Z, u_stage.expand(Z.shape[:-1] + u.shape[-1:]))
-            (Jf,) = _stage_jacobians(f, Z, u, (0,))
-            LU, piv = _newton_lu(A, Jf, h)
-            dK = torch.linalg.lu_solve(LU, piv, R.reshape(R.shape[:-2] + (s * nx, 1)))
-            K = K - dK.reshape(K.shape)
+    The fixed Newton iterations solve the collocation system through
+    :func:`irk_newton_solve` (kernel K3 on the card), starting from
+    K_i = f(x, u). D comes from the implicit-function theorem at the
+    converged stage states, as the JAX package's ``custom_jvp`` rule gives
+    it: M (rebuilt there) dK = [Jf | Ju] solved for all nx + nu directions
+    in one call, D = [I | 0] + h sum_j b_j dK_j."""
+    s, nx = A.shape[0], x.shape[-1]
+    u_stage = u.unsqueeze(-2).expand(u.shape[:-1] + (s, u.shape[-1]))
+    f0 = f(x, u)
+    K = f0.unsqueeze(-2).expand(f0.shape[:-1] + (s, nx))
+    for _ in range(newton_iter):
         Z = _stage_states(x, K, A, h)
-        Jf, Ju = _stage_jacobians(f, Z, u, (0, 1))
-        LU, piv = _newton_lu(A, Jf, h)
-        J = torch.cat([Jf, Ju], dim=-1)                        # (..., s, nx, nx + nu)
-        dK = torch.linalg.lu_solve(LU, piv, J.reshape(J.shape[:-3] + (s * nx, J.shape[-1])))
-        dK = dK.reshape(J.shape)
-        eye = torch.eye(nx, J.shape[-1], dtype=x.dtype, device=x.device)
-        D = eye + h * torch.einsum("j,...jnm->...nm", b, dK)
-        phi = x + h * torch.einsum("j,...jn->...n", b, K)
-        return phi, D
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        _, D = output
-        ctx.mark_non_differentiable(D)
-        ctx.save_for_forward(D)
-
-    @staticmethod
-    def jvp(ctx, dx, du, *_):
-        (D,) = ctx.saved_tensors
-        nx = D.shape[-2]
-        dphi = torch.einsum("...ij,...j->...i", D[..., :nx], dx)
-        if du is not None:
-            dphi = dphi + torch.einsum("...ij,...j->...i", D[..., nx:], du)
-        return dphi, None
+        R = K - f(Z, u_stage)
+        (Jf,) = _stage_jacobians(f, Z, u, (0,))
+        K = K - irk_newton_solve(Jf, A, h, R.unsqueeze(-1)).squeeze(-1)
+    phi = x + h * _ordered_sum(b[:, None] * K, -2)
+    if not sensitivities:
+        return phi
+    Z = _stage_states(x, K, A, h)
+    Jf, Ju = _stage_jacobians(f, Z, u, (0, 1))
+    dK = irk_newton_solve(Jf, A, h, torch.cat([Jf, Ju], dim=-1))
+    eye = torch.eye(nx, dK.shape[-1], dtype=x.dtype, device=x.device)
+    return phi, eye + h * _ordered_sum(b[:, None, None] * dK, -3)
 
 
 def irk_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt, *,
              stages: int = 4, newton_iter: int = 3,
-             tableau: str = "gauss_legendre", num_steps: int = 1) -> torch.Tensor:
+             tableau: str = "gauss_legendre", num_steps: int = 1,
+             sensitivities: bool = False):
     """One implicit-RK step of size ``dt``, optionally split into
     ``num_steps`` substeps.
 
     Solves K_i = f(x + h sum_j A_ij K_j, u) with exactly ``newton_iter``
     full-Newton iterations on K (..., s, nx), starting from K_i = f(x, u);
     each iteration rebuilds the Jacobian of f at the current stage states
-    and solves the (s nx x s nx) Newton system with a pivoted LU
-    (``torch.linalg.lu_factor_ex``/``lu_solve``). Differentiating the result
-    with ``torch.func`` gives the IFT sensitivities of :class:`_IrkSubstep`.
+    and solves the (s nx x s nx) Newton system by the JAX package's block LU
+    without pivoting (:func:`irk_newton_solve`: kernel K3 on CUDA tensors,
+    its plain version on CPU tensors). Each row's arithmetic is its own, so
+    a row gives the same result whatever batch it runs in.
+
+    Returns Phi (..., nx), or with ``sensitivities`` (Phi, D), D =
+    dPhi/d(x, u) (..., nx, nx + nu) from the implicit-function theorem
+    (chained over the substeps). The step is not differentiated by
+    ``torch.func``: its sensitivities come from ``sensitivities``.
     """
     A, b = _tableau_tensors(tableau, stages, x.dtype, x.device)
     h = dt / num_steps
+    lead, nx, nu = x.shape[:-1], x.shape[-1], u.shape[-1]
+    x, u = x.reshape(-1, nx), u.expand(lead + (nu,)).reshape(-1, nu)
+    D = None
     for _ in range(num_steps):
-        x, _ = _IrkSubstep.apply(x, u, f, h, A, b, newton_iter)
-    return x
+        if not sensitivities:
+            x = _irk_substep(f, x, u, h, A, b, newton_iter, False)
+            continue
+        x, Ds = _irk_substep(f, x, u, h, A, b, newton_iter, True)
+        D = Ds if D is None else torch.cat(
+            [Ds[..., :nx] @ D[..., :nx], Ds[..., :nx] @ D[..., nx:] + Ds[..., nx:]], dim=-1)
+    x = x.reshape(lead + (nx,))
+    return x if D is None else (x, D.reshape(lead + D.shape[-2:]))
 
 
 def make_integrator(options) -> Callable:
@@ -218,3 +378,33 @@ def make_integrator(options) -> Callable:
     else:
         raise ValueError(f"unknown integrator {options.integrator!r}")
     return step
+
+
+def make_linearization(options) -> Callable:
+    """Build lin(x, u, dt) -> (Phi, dPhi/dx, dPhi/du) over rows x (R, nx),
+    u (R, nu) from :class:`doa_mpc_tpu_torch.config.SolverOptions`: rk4
+    through ``vmap(jacfwd(...))`` with Phi as its aux output, IRK from one
+    :func:`irk_step` with its IFT sensitivities (one Newton solve of all
+    rows per iteration, one more for the sensitivities)."""
+    from doa_mpc_tpu_torch.models.unicycle import dynamics
+
+    if options.integrator == "irk":
+        def lin(x, u, dt):
+            phi, D = irk_step(dynamics, x, u, dt, stages=options.irk_stages,
+                              newton_iter=options.irk_newton_iter,
+                              tableau=options.irk_tableau, sensitivities=True)
+            nx = x.shape[-1]
+            return phi, D[..., :nx], D[..., nx:]
+        return lin
+    step = make_integrator(options)
+
+    def phi_twice(x, u, dt):
+        phi = step(x, u, dt)
+        return phi, phi
+
+    jac = vmap(jacfwd(phi_twice, argnums=(0, 1), has_aux=True), in_dims=(0, 0, None))
+
+    def lin(x, u, dt):
+        (A, B), phi = jac(x, u, dt)
+        return phi, A, B
+    return lin

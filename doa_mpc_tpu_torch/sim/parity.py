@@ -16,10 +16,10 @@ Cells whose settings coincide but for the scenario (the RANDOM and EDGE
 cells of one TF, N, M, IP budget and initial guess) run as one batch through
 ``sim.experiments.run_scenario_batch`` (its ``compat_rng`` path, the
 scenarios' worlds and noise concatenated): with the worlds pinned, the
-scenario only places the obstacles. On the CPU a paired row equals the row
-run alone bit for bit; on a card the rk4 rows do too, but some IRK ops
-round a row differently at another batch size, so an IRK cell's per-seed
-rows depend on what it was batched with. Each cell's record says which
+scenario only places the obstacles. A paired row equals the row run alone
+bit for bit, on the CPU and on a card, rk4 and IRK alike: every op of the
+tick computes a row from that row alone, whatever the batch (the IRK Newton
+solve is kernel K3, one thread per row). Each cell's record says which
 cells shared its run and how many rows the run had (``batch``,
 ``batch_rows``).
 
@@ -313,8 +313,8 @@ def summarize(leg: Leg, s: Settings, results: list, out_dir: str, device: str) -
                 f"{'f64' if s.f64 else 'f32'}, device {device}; row i of each cell uses the "
                 "reference's np.random.seed(i) streams verbatim; per-seed agreement, "
                 "discordant counts and McNemar z against the TPU CSV; \"batch\" is the rows "
-                "of the run that held the cell (the cells of one setting run together; IRK "
-                "rows on a card depend on it).\n\n"
+                "of the run that held the cell (the cells of one setting run together; a row "
+                "does not depend on it).\n\n"
                 "| cell | scenario | TF | qp | init | ours hit | TPU hit | ref hit | "
                 "ours reached | TPU reached | ref reached | agree hit | agree reached | "
                 "hit z | resets ours / TPU | batch | wall s |\n"

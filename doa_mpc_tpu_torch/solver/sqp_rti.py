@@ -24,11 +24,10 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
 
 from doa_mpc_tpu_torch.config import CostParams, SolverOptions, WorldSpec, resolve_device
 from doa_mpc_tpu_torch.models.unicycle import obstacle_h, obstacle_h_jac, safe_dist_sq
-from doa_mpc_tpu_torch.ops.integrators import make_integrator
+from doa_mpc_tpu_torch.ops.integrators import make_integrator, make_linearization
 # the structure of every QP build_qp produces, defined beside the kernel
 # instantiation that specializes on it
 from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE  # noqa: F401
@@ -211,24 +210,18 @@ def make_rti_controller(spec: WorldSpec, options: SolverOptions | None = None,
     options = options or SolverOptions(qp_iter=spec.qp_iter)
     dev = resolve_device(device)
     step = make_integrator(options)
+    linearize = make_linearization(options)
     dt = spec.tf / spec.n_solv
 
     def integrate(x, u):
         return step(x, u, dt)
 
-    def phi_twice(x, u):
-        phi = integrate(x, u)
-        return phi, phi
-
-    # Phi comes back as the aux output of the same call, so one integration
-    # (for IRK: one Newton solve) gives Phi, A and B
-    jac = vmap(jacfwd(phi_twice, argnums=(0, 1), has_aux=True))
-
     def lin(xs, us):
-        """(Phi, dPhi/dx, dPhi/du) over (..., nx)/(..., nu) stage arrays."""
+        """(Phi, dPhi/dx, dPhi/du) over (..., nx)/(..., nu) stage arrays: the
+        stage points as one batch of rows (for IRK one Newton solve per
+        iteration and one for the sensitivities, whatever the row count)."""
         lead = xs.shape[:-1]
-        x, u = xs.reshape(-1, xs.shape[-1]), us.reshape(-1, us.shape[-1])
-        (A, B), phi = jac(x, u)
+        phi, A, B = linearize(xs.reshape(-1, xs.shape[-1]), us.reshape(-1, us.shape[-1]), dt)
         return (phi.reshape(xs.shape), A.reshape(lead + A.shape[1:]),
                 B.reshape(lead + B.shape[1:]))
 

@@ -70,6 +70,7 @@ def main():
     spec.loader.exec_module(cs)
     sys.path.insert(0, os.path.abspath(a.tree))
     from doa_mpc_tpu_torch.ops import riccati_fused
+    from doa_mpc_tpu_torch.utils.profiling import device_label
 
     dev = torch.device("cuda", 0)
     lqr = [x.float() for x in cs.seeded_lqrs(torch, dev)]
@@ -92,7 +93,7 @@ def main():
         "wrapper_ms_B4096": cs.time_ms(torch, lambda: solve(*lqr), reps=50, warmup=3),
         "wrapper_ms_B1": cs.time_ms(torch, lambda: solve(*lqr1), reps=50, warmup=3),
         "max_abs_err_vs_plain": err, "N": cs.N, "dtype": "float32",
-        "card": cs.card_name()}), flush=True)
+        "card": device_label(dev)}), flush=True)
 
 
 if __name__ == "__main__":

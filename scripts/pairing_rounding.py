@@ -12,32 +12,123 @@ bit and the largest difference:
 
     python scripts/pairing_rounding.py --leg results/parity_r5/v1_nostatus4 --only 220136
 
-It runs on a card (``--device cuda``, the default); on the CPU every row
-stays equal.
+With an IRK leg it then splits the IRK substep (``ops/integrators.py``,
+``_irk_substep``) at that tick into its ops, at both of its call
+sites (the plant step over the B rows, the linearization over the B*N
+stage points), and prints per op the rows equal and the largest
+difference. Each op gets the same inputs in the cell's rows at both batch
+sizes (the alone run's), so a row that differs names the op that rounds
+it differently, not one that inherited a difference.
+
+``--ranks 2`` runs the campaign cell of ``chip_smoke.py`` phase 14
+(TF 2.0, N 20, M 5, 6 IP iterations, ``fused``, f32, RANDOM, 100 seeds x
+400 ticks, seed 0) with ``--integrator`` through ``run_scenario_batch``
+unsharded and as the ``experiment --distributed`` command on that many gloo
+ranks on the card, and prints the rows the two give equal.
+
+It runs on a card (``--device cuda``, the default). Every op of the tick
+computes a row from that row alone (the IRK Newton solve is kernel K3,
+one thread per row, and the substep's sums are elementwise in a fixed
+order), so on the card as on the CPU the state stays equal in every row
+and IRK rows do not depend on the batch; the script finds the op that
+breaks that, should one come to.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from doa_mpc_tpu_torch.config import resolve_device  # noqa: E402
+from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, resolve_device  # noqa: E402
+from doa_mpc_tpu_torch.models.unicycle import dynamics  # noqa: E402
+from doa_mpc_tpu_torch.ops import integrators  # noqa: E402
 from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused  # noqa: E402
 from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp  # noqa: E402
 from doa_mpc_tpu_torch.sim import parity  # noqa: E402
 from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick  # noqa: E402
 from doa_mpc_tpu_torch.sim.compat_rng import mt_experiment_batch  # noqa: E402
+from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch  # noqa: E402
 from doa_mpc_tpu_torch.sim.obstacles import (  # noqa: E402
     ObstacleState, predict_trajectory, robot_start_goal,
 )
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller  # noqa: E402
+
+
+def substep_ops(opts, h, dtype, dev):
+    """The ops of one IRK substep (``ops/integrators.py``, ``_irk_substep``
+    with its sensitivities) in order, as (name, fn, inputs, outputs) over a
+    dict of named tensors whose leading dimension is the row."""
+    A, b = integrators._tableau_tensors(opts.irk_tableau, opts.irk_stages, dtype, dev)
+    s_, nx = A.shape[0], 5
+
+    def k0(x, u):
+        f0 = dynamics(x, u)
+        return f0.unsqueeze(-2).expand(f0.shape[:-1] + (s_, nx))
+
+    def f_stages(Z, u):
+        return dynamics(Z, u.unsqueeze(-2).expand(Z.shape[:-1] + u.shape[-1:]))
+
+    ops = [("f(x, u)", k0, ("x", "u"), ("K",))]
+    for it in range(1, opts.irk_newton_iter + 1):
+        ops += [
+            (f"stage states {it}", lambda x, K: integrators._stage_states(x, K, A, h),
+             ("x", "K"), ("Z",)),
+            (f"f at the stages {it}", f_stages, ("Z", "u"), ("F",)),
+            (f"stage Jacobians {it}",
+             lambda Z, u: integrators._stage_jacobians(dynamics, Z, u, (0,))[0],
+             ("Z", "u"), ("Jf",)),
+            (f"K3 Newton solve {it}",
+             lambda Jf, K, F: integrators.irk_newton_solve(Jf, A, h, (K - F).unsqueeze(-1)),
+             ("Jf", "K", "F"), ("dK",)),
+            (f"K update {it}", lambda K, dK: K - dK.squeeze(-1), ("K", "dK"), ("K",))]
+    ops += [
+        ("phi (b-weighted sum)",
+         lambda x, K: x + h * integrators._ordered_sum(b[:, None] * K, -2), ("x", "K"),
+         ("phi",)),
+        ("stage states (final)", lambda x, K: integrators._stage_states(x, K, A, h),
+         ("x", "K"), ("Z",)),
+        ("stage Jacobians (final)",
+         lambda Z, u: torch.cat(integrators._stage_jacobians(dynamics, Z, u, (0, 1)), -1),
+         ("Z", "u"), ("J",)),
+        ("K3 sensitivity solve",
+         lambda J: integrators.irk_newton_solve(J[..., :nx].contiguous(), A, h, J), ("J",),
+         ("dK",)),
+        ("D (b-weighted sum)",
+         lambda dK: torch.eye(nx, dK.shape[-1], dtype=dtype, device=dev)
+         + h * integrators._ordered_sum(b[:, None, None] * dK, -3), ("dK",), ("D",))]
+    return ops
+
+
+def split_substep(opts, h, alone, paired, n):
+    """Run :func:`substep_ops` on the cell's rows alone (``alone``: dict with
+    x, u of ``n`` rows) and behind the other rows (``paired``: the same keys,
+    the cell's rows last). Before each op the cell's rows of its inputs in
+    the paired run are set to the alone run's. Returns (name, rows equal,
+    max|diff|) per op."""
+    x = alone["x"]
+    out = []
+    for name, fn, ins, outs in substep_ops(opts, h, x.dtype, x.device):
+        for k in ins:
+            paired[k] = paired[k].clone()
+            paired[k][-n:] = alone[k]
+        ra, rp = fn(*(alone[k] for k in ins)), fn(*(paired[k] for k in ins))
+        ra, rp = (ra, rp) if len(outs) > 1 else ((ra,), (rp,))
+        alone.update(zip(outs, ra))
+        paired.update(zip(outs, rp))
+        a = torch.cat([v.reshape(n, -1).to(torch.float64) for v in ra], 1)
+        p = torch.cat([v[-n:].reshape(n, -1).to(torch.float64) for v in rp], 1)
+        out.append((name, int((a == p).all(1).sum()), float((a - p).abs().max())))
+    return out
 
 
 def pairing_rounding(s, cell, dev, n_runs=100, max_ticks=60):
@@ -92,9 +183,68 @@ def pairing_rounding(s, cell, dev, n_runs=100, max_ticks=60):
                                          sol[b].s.reshape(b, -1)], 1) for b in sizes},
         "plant step": {b: ctrl.integrate(st[b].x0, u0[b]) for b in sizes},
         "state after it": {b: carried(nxt[b], b) for b in sizes}}
-    return f"first differing tick {t + 1}; at it, rows equal (max|diff|): " + "; ".join(
+    line = f"first differing tick {t + 1}; at it, rows equal (max|diff|): " + "; ".join(
         f"{name} {n}/{n_runs} ({d:.2e})" for name, (n, d) in
         ((name, rows_equal(v)) for name, v in steps.items()))
+    if opts.integrator != "irk":
+        return line
+    h = spec.tf / spec.n_solv
+    N = spec.n_solv
+    sites = {"plant step": ({b: st[b].x0 for b in sizes}, u0, n_runs),
+             "linearization": ({b: st[b].rti.x_traj[:, :-1].reshape(b * N, -1) for b in sizes},
+                               {b: st[b].rti.u_traj.reshape(b * N, -1) for b in sizes},
+                               n_runs * N)}
+    for site, (xs, us, rows) in sites.items():
+        ops = split_substep(opts, h, dict(x=xs[n_runs], u=us[n_runs]),
+                            dict(x=xs[2 * n_runs], u=us[2 * n_runs]), rows)
+        line += (f"\nIRK substep ops at tick {t + 1}, {site} ({rows} rows alone, {2 * rows} "
+                 "paired; each op on equal inputs), rows equal (max|diff|): " + "; ".join(
+                     f"{name} {n}/{rows} ({d:.2e})" for name, n, d in ops))
+    return line
+
+
+def sharded_rows(integrator, ranks, dev, out_dir, n_runs=100, max_iter=400):
+    """The rows of ``chip_smoke.py`` phase 14's campaign cell with
+    ``integrator``: unsharded through ``run_scenario_batch`` and as the
+    ``experiment --distributed`` command on ``ranks`` gloo ranks on the card
+    (each on ``cuda:0``). Returns a line with the rows equal."""
+    import numpy as np
+
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=6)
+    ref = run_scenario_batch(spec, SolverOptions(qp_iter=6, integrator=integrator), "RANDOM",
+                             n_runs=n_runs, max_iter=max_iter, dtype=torch.float32,
+                             backend="fused", device=dev)
+    repo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    cmd = [sys.executable, "-m", "doa_mpc_tpu_torch", "experiment", "--distributed",
+           "--device", dev.type, "--runs", str(n_runs), "--max-iter", str(max_iter), "--qp-iter", "6",
+           "--integrator", integrator, "--scenarios", "RANDOM", "--out", out_dir]
+    procs = [subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=dict(os.environ, MASTER_ADDR="localhost",
+                                                  MASTER_PORT=str(port), WORLD_SIZE=str(ranks),
+                                                  RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(ranks)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, [ln for ln in o.splitlines() if "Error" in ln][-1:])
+              for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    if failed:
+        return (f"campaign cell ({integrator}) on {ranks} gloo ranks: ranks failed (rank, exit "
+                f"code, last error line): {failed}")
+    (csv,) = [f for f in os.listdir(out_dir) if f.endswith("_experiment_data.csv")]
+    got = np.loadtxt(os.path.join(out_dir, csv), delimiter=";")
+    return (f"campaign cell ({integrator}, fused, f32, RANDOM, {n_runs} seeds x {max_iter} ticks, seed 0) "
+            f"on {ranks} gloo ranks: {int((got == ref).all(1).sum())} of {n_runs} rows equal to the "
+            f"unsharded run, {int((got[:, [0, 1, 4, 5]] == ref[:, [0, 1, 4, 5]]).all(1).sum())} "
+            f"in hit, reached, steps and oob; hit {got[:, 0].mean():.2f} / {ref[:, 0].mean():.2f}"
+            f", reached {got[:, 1].mean():.2f} / {ref[:, 1].mean():.2f}")
 
 
 def main(argv=None):
@@ -103,15 +253,27 @@ def main(argv=None):
     ap.add_argument("--only", default="220136", help="the cell's stamp")
     ap.add_argument("--max-ticks", type=int, default=60)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run the sharded check on this many gloo ranks instead")
+    ap.add_argument("--integrator", choices=["irk", "rk4"],
+                    help="the leg's integrator instead (the sharded check: default irk)")
+    ap.add_argument("--runs", type=int, help="seeds per scenario instead of the leg's")
     args = ap.parse_args(argv)
-    leg = parity.load_leg(args.leg)
-    s = parity.leg_settings(leg)
-    (cell,) = parity.select(leg.cells, args.only)
     dev = resolve_device(args.device)
     card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True, text=True).stdout
             .strip().splitlines()[0] if dev.type == "cuda" else "cpu")
-    line = pairing_rounding(s, cell, dev, n_runs=parity.runs_of(leg, s),
+    if args.ranks:
+        with tempfile.TemporaryDirectory() as out:
+            print(f"{sharded_rows(args.integrator or 'irk', args.ranks, dev, out)}; card={card}",
+                  flush=True)
+        return
+    leg = parity.load_leg(args.leg)
+    s = parity.leg_settings(leg)
+    if args.integrator:
+        s = dataclasses.replace(s, integrator=args.integrator)
+    (cell,) = parity.select(leg.cells, args.only)
+    line = pairing_rounding(s, cell, dev, n_runs=args.runs or parity.runs_of(leg, s),
                             max_ticks=args.max_ticks)
     print(f"{leg.name} {parity.cell_id(cell)} ({s.integrator}, {s.backend}, "
           f"{'f64' if s.f64 else 'f32'}) behind the other scenario: {line}; card={card}",

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on a CUDA card against their plain PyTorch versions.
+"""Kernels K1, K2 and K3 on a CUDA card against their plain PyTorch versions.
 
 These tests need a card and skip without one. They import no JAX, so they
 also run where only PyTorch is installed (tests/conftest.py imports JAX, so
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
-from doa_mpc_tpu_torch.ops import ip_fused, riccati_fused
+from doa_mpc_tpu_torch.ops import integrators, ip_fused, riccati_fused
 from doa_mpc_tpu_torch.ops.ip_fused import (
     GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
 from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
@@ -373,19 +373,24 @@ def test_kernel_sweep_budgets_pass_f64_arbitration(cuda, structure, iters):
 
 def test_irk_fused_tick_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     """With the default integrator (IRK) the fused main path launches K1
-    once per tick and never hands a CUDA tensor to the plain version."""
+    once per tick and K3 seven times, and never hands a CUDA tensor to
+    either plain version."""
     def plain_on_a_card(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=50)
     opts = SolverOptions(qp_iter=50, compat_pred_bug=True)
     assert opts.integrator == "irk"
-    before = solve_ocp_qp_fused.launches
+    before, k3 = solve_ocp_qp_fused.launches, integrators.irk_newton_solve.launches
     with monkeypatch.context() as mp:
         mp.setattr(ip_fused, "solve_ocp_qp_fused_ref", plain_on_a_card)
+        mp.setattr(integrators, "irk_newton_solve_ref", plain_on_a_card)
         gpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=12,
                                  compat_rng=True, device=cuda)
     assert solve_ocp_qp_fused.launches == before + 12
+    # K3: 3 Newton solves + 1 sensitivity solve in the linearization, 3 in
+    # the plant step, per tick
+    assert integrators.irk_newton_solve.launches == k3 + 7 * 12
     cpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=12,
                              compat_rng=True, device="cpu")
     assert np.isfinite(gpu).all()
@@ -432,9 +437,9 @@ def test_f64_riccati_irk_tick_on_cuda_launches_k2_f64(cuda, monkeypatch):
 
 
 def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
-    """The f32 Newton iterations and LU solves on the card (TF32 off) land
-    within 1e-5 of the float64 step on the CPU, and so do the sensitivities
-    of the controller's linearization."""
+    """The f32 Newton iterations and K3's block-LU solves on the card (TF32
+    off) land within 1e-5 of the float64 step on the CPU, and so do the
+    sensitivities of the controller's linearization."""
     from doa_mpc_tpu_torch.models.unicycle import dynamics
     from doa_mpc_tpu_torch.ops.integrators import irk_step
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
@@ -456,6 +461,93 @@ def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
         torch.tensor(xs), torch.tensor(us))
     for g, w in zip(lin32, lin64):
         np.testing.assert_allclose(g.double().cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+def _k3_inputs(dev, dtype, rows, k, seed=0):
+    """Stage Jacobians of the unicycle's size at states like the
+    controller's (f(Z) at N(0, s) states through ``_stage_jacobians``), the
+    4-stage Gauss-Legendre tableau and right-hand sides N(0, 1)."""
+    from doa_mpc_tpu_torch.models.unicycle import dynamics
+
+    rng = np.random.default_rng(seed)
+    Z = torch.tensor(rng.standard_normal((rows, 4, 5)) * np.array([3, 3, 1, 2, 1]),
+                     dtype=dtype, device=dev)
+    u = torch.tensor(rng.standard_normal((rows, 2)), dtype=dtype, device=dev)
+    (Jf,) = integrators._stage_jacobians(dynamics, Z, u, (0,))
+    A = integrators._tableau_tensors("gauss_legendre", 4, dtype, dev)[0]
+    rhs = torch.tensor(rng.standard_normal((rows, 4, 5, k)), dtype=dtype, device=dev)
+    return Jf, A, rhs
+
+
+@pytest.mark.parametrize("k", [1, 7])
+@pytest.mark.parametrize("rows", [1, 37, 4096, 81920])
+def test_k3_matches_plain(cuda, rows, k):
+    """K3 against its plain version on the card: f64 to 1e-12; f32 no
+    further from the f64 plain output than 2x the plain f32 version (and
+    1e-6)."""
+    Jf, A, rhs = _k3_inputs(cuda, torch.float64, rows, k)
+    before = integrators.irk_newton_solve.launches
+    got = integrators.irk_newton_solve(Jf, A, 0.1, rhs)
+    want = integrators.irk_newton_solve_ref(Jf, A, 0.1, rhs)
+    torch.cuda.synchronize()
+    assert integrators.irk_newton_solve.launches == before + 1
+    assert got.shape == rhs.shape and got.dtype == torch.float64
+    assert float((got - want).abs().max()) <= 1e-12
+    f32 = [t.float() for t in (Jf, A, rhs)]
+    e_k = float((integrators.irk_newton_solve(f32[0], f32[1], 0.1, f32[2]).double()
+                 - want).abs().max())
+    e_p = float((integrators.irk_newton_solve_ref(f32[0], f32[1], 0.1, f32[2]).double()
+                 - want).abs().max())
+    assert np.isfinite(e_k) and e_k <= max(2 * e_p, 1e-6), (e_k, e_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_rows_do_not_depend_on_the_batch(cuda, dtype):
+    """The first rows give the same bits alone as inside a batch of 81,920,
+    and so do rows at the end of the batch."""
+    Jf, A, rhs = _k3_inputs(cuda, dtype, 81920, 7, seed=1)
+    whole = integrators.irk_newton_solve(Jf, A, 0.1, rhs)
+    for sl in (slice(0, 1), slice(0, 100), slice(81900, 81920)):
+        part = integrators.irk_newton_solve(Jf[sl].contiguous(), A, 0.1, rhs[sl].contiguous())
+        assert torch.equal(part, whole[sl])
+    newton = integrators.irk_newton_solve(Jf, A, 0.1, rhs[..., :1].contiguous())
+    part = integrators.irk_newton_solve(Jf[:50].contiguous(), A, 0.1,
+                                        rhs[:50, ..., :1].contiguous())
+    assert torch.equal(part, newton[:50])
+
+
+def test_k3_rejects_what_it_does_not_take(cuda):
+    """Wrong shapes, dtypes, devices or strides raise before a launch; there
+    is no fallback to the plain version."""
+    Jf, A, rhs = _k3_inputs(cuda, torch.float32, 8, 7)
+    solve = integrators.irk_newton_solve
+    before = solve.launches
+    with pytest.raises(TypeError, match="float32 or float64"):
+        solve(Jf.half(), A.half(), 0.1, rhs.half())
+    with pytest.raises(TypeError, match="rhs is"):
+        solve(Jf, A, 0.1, rhs.double())
+    with pytest.raises(ValueError, match="k in"):
+        solve(Jf, A, 0.1, rhs[..., :2].contiguous())
+    with pytest.raises(ValueError, match="A has shape"):
+        solve(Jf, A[:3, :3].contiguous(), 0.1, rhs)
+    with pytest.raises(ValueError, match="is on"):
+        solve(Jf, A.cpu(), 0.1, rhs)
+    with pytest.raises(ValueError, match="not contiguous"):
+        solve(Jf, A, 0.1, rhs.transpose(0, 1).contiguous().transpose(0, 1))
+    assert solve.launches == before
+
+
+def test_irk_paired_rows_equal_rows_alone_on_cuda(cuda):
+    """IRK rows on the card do not depend on the batch: an EDGE cell's rows
+    run alone equal its rows run behind the RANDOM cell's (compat_rng, f32,
+    fused, 30 ticks)."""
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=20)
+    opts = SolverOptions(qp_iter=20, compat_pred_bug=True)
+    kw = dict(n_runs=16, max_iter=30, compat_rng=True, device=cuda, return_state=True)
+    paired, fin_p = run_scenario_batch(spec, opts, ["RANDOM", "EDGE"], **kw)
+    alone, fin_a = run_scenario_batch(spec, opts, "EDGE", **kw)
+    np.testing.assert_array_equal(paired[16:], alone)
+    assert torch.equal(fin_p.x0[16:], fin_a.x0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,18 @@
 """The PyTorch port's implicit Runge-Kutta integrator against the JAX
-package's in float64: the tableaus, the step (1e-12), its IFT sensitivities
-under ``torch.func.jacfwd`` (1e-10 against ``jax.jacfwd``, 1e-6 against
-finite differences), the native C++ Radau IIA step as a third oracle, f32
-against f64, and one factorization of the Newton matrix per stage point
-under the controller's linearization."""
+package's in float64: the tableaus; the block LU of the Newton matrix
+(``_inv_small``, ``_newton_blocks``, ``_block_lu``, ``_block_solve``: 1e-13
+in f64, 1e-5 in f32, against the JAX functions of the same names); the step
+(1e-14; 3.3e-16 measured), its IFT sensitivities (1e-15 against
+``jax.jacfwd``; 5.6e-17 measured; 1e-6 against finite differences) and the
+controller's linearization (1e-13 against JAX's ``vmap(jacfwd(...))``); the
+native C++ Radau IIA step as a third oracle; f32 against f64; kernel K3's
+source compiled with g++ against its plain version; the Newton matrix
+factored once per Newton iteration over all rows (plus once for the
+sensitivities of the linearization); and the sharded IRK rollout."""
 
+import ctypes
 import os
+import shutil
 import subprocess
 import sys
 
@@ -18,11 +25,17 @@ from torch.func import jacfwd, vmap
 
 from doa_mpc_tpu import native
 from doa_mpc_tpu.models.unicycle import dynamics as j_dynamics
+from doa_mpc_tpu.ops import integrators as j_int
 from doa_mpc_tpu.ops.integrators import butcher_tableau as j_tableau
 from doa_mpc_tpu.ops.integrators import irk_step as j_irk
+from doa_mpc_tpu.solver.sqp_rti import make_rti_controller as j_make_rti_controller
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
 from doa_mpc_tpu_torch.models.unicycle import dynamics
-from doa_mpc_tpu_torch.ops.integrators import butcher_tableau, irk_step, make_integrator
+from doa_mpc_tpu_torch.ops import integrators
+from doa_mpc_tpu_torch.ops.integrators import (
+    butcher_tableau, irk_newton_solve, irk_newton_solve_ref, irk_step, make_integrator)
+from doa_mpc_tpu_torch.parallel.mesh import make_data_mesh
+from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,28 +73,34 @@ def test_irk_step_matches_jax(kind, stages, num_steps):
     got = irk_step(dynamics, torch.as_tensor(x), torch.as_tensor(u), DT, stages=stages,
                    tableau=kind, num_steps=num_steps)
     assert got.dtype == torch.float64 and got.shape == (NB, 5)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
+    # the same block LU in the same order: 3.3e-16 measured
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-14)
 
 
 @pytest.mark.parametrize("kind,stages", SCHEMES)
 @pytest.mark.parametrize("num_steps", [1, 2])
 def test_irk_sensitivities_match_jax_jacfwd_and_finite_differences(kind, stages, num_steps):
+    """``irk_step(..., sensitivities=True)``'s IFT D = dPhi/d(x, u) (chained
+    over the substeps) against ``jax.jacfwd`` of JAX's step (5.6e-17
+    measured) and against central differences of the port's step."""
     x, u = _states(1)
 
     def j_step(xx, uu):
         return j_irk(j_dynamics, xx, uu, DT, stages=stages, tableau=kind,
                      num_steps=num_steps)
 
-    def step(xx, uu):
+    def step(xx, uu, **kw):
         return irk_step(dynamics, xx, uu, DT, stages=stages, tableau=kind,
-                        num_steps=num_steps)
+                        num_steps=num_steps, **kw)
 
     A_j, B_j = jax.jit(jax.vmap(jax.jacfwd(j_step, argnums=(0, 1))))(jnp.asarray(x),
                                                                       jnp.asarray(u))
     xt, ut = torch.as_tensor(x), torch.as_tensor(u)
-    A, B = vmap(jacfwd(step, argnums=(0, 1)))(xt, ut)
-    np.testing.assert_allclose(A.numpy(), np.asarray(A_j), rtol=0, atol=1e-10)
-    np.testing.assert_allclose(B.numpy(), np.asarray(B_j), rtol=0, atol=1e-10)
+    phi, D = step(xt, ut, sensitivities=True)
+    A, B = D[..., :5], D[..., 5:]
+    np.testing.assert_array_equal(phi.numpy(), step(xt, ut).numpy())
+    np.testing.assert_allclose(A.numpy(), np.asarray(A_j), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(B.numpy(), np.asarray(B_j), rtol=0, atol=1e-15)
     # central differences of the step itself (the Newton residual after 3
     # iterations sits far below the 1e-6 tolerance)
     eps = 1e-6
@@ -127,30 +146,225 @@ def test_make_integrator_builds_the_options_scheme():
 
 
 def test_lin_factors_the_newton_matrix_once_per_stage_point(monkeypatch):
-    """Under ``vmap(jacfwd(...))`` the 7 tangent directions share one
-    factorization: the linearization of all B*N stage points calls the LU
-    as often as one plain step over them does (newton_iter + 1 times, each
-    over the whole batch), not 7 times as often."""
+    """The linearization of all B*N stage points is one batch of rows: it
+    factors the Newton matrix once per Newton iteration and once more for
+    the sensitivities (newton_iter + 1 calls of ``_block_lu``, each over
+    every row), whatever the number of tangent directions; the plant step
+    once per Newton iteration (it solves no sensitivities)."""
     spec = WorldSpec(tf=0.4, n_solv=4, n_obst=2, qp_iter=2)
     ctrl = make_rti_controller(spec, dtype=torch.float64, device="cpu")
     assert ctrl.options.integrator == "irk" and ctrl.options.irk_newton_iter == 3
     x, u = _states(5, nb=12)
     xs, us = torch.as_tensor(x).reshape(3, 4, 5), torch.as_tensor(u).reshape(3, 4, 2)
     calls = []
-    lu_factor_ex = torch.linalg.lu_factor_ex
+    block_lu = integrators._block_lu
 
-    def spy(M, *a, **k):
-        calls.append(M.shape)
-        return lu_factor_ex(M, *a, **k)
+    def spy(M):
+        calls.append(tuple(M.shape))
+        return block_lu(M)
 
-    monkeypatch.setattr(torch.linalg, "lu_factor_ex", spy)
+    monkeypatch.setattr(integrators, "_block_lu", spy)
     plain = ctrl.integrate(xs, us)
-    assert calls == [(3, 4, 20, 20)] * 4
+    assert calls == [(12, 4, 4, 5, 5)] * 3
     calls.clear()
     phi, A, B = ctrl.lin(xs, us)
-    assert len(calls) == 4
+    assert calls == [(12, 4, 4, 5, 5)] * 4
     np.testing.assert_array_equal(phi.numpy(), plain.numpy())
     assert A.shape == (3, 4, 5, 5) and B.shape == (3, 4, 5, 2)
+
+
+@pytest.mark.parametrize("integrator", ["irk", "rk4"])
+def test_lin_matches_jax_vmap_jacfwd_linearization(integrator):
+    """The controller's (Phi, A, B) over B x N stage points against JAX's
+    controller, which differentiates its step with ``jax.jacfwd`` under
+    ``jax.vmap``, in f64 (IRK: the IFT sensitivities of one Newton solve
+    of all rows; rk4: ``vmap(jacfwd(...))`` here too)."""
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=6)
+    opts = SolverOptions(qp_iter=6, integrator=integrator)
+    x, u = _states(6, nb=60)
+    xs, us = x.reshape(3, 20, 5), u.reshape(3, 20, 2)
+    got = make_rti_controller(spec, opts, dtype=torch.float64, device="cpu").lin(
+        torch.as_tensor(xs), torch.as_tensor(us))
+    j_lin = jax.jit(jax.vmap(j_make_rti_controller(spec, opts, dtype=jnp.float64).lin))
+    want = j_lin(jnp.asarray(xs), jnp.asarray(us))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-13)
+
+
+def test_lin_takes_a_view_at_a_storage_offset():
+    """A shard's stage arrays are views into the whole batch's (rows 2..3 of
+    4): the IRK linearization takes them and gives the rows of the whole."""
+    spec = WorldSpec(tf=0.4, n_solv=4, n_obst=2, qp_iter=2)
+    ctrl = make_rti_controller(spec, dtype=torch.float64, device="cpu")
+    x, u = _states(7, nb=16)
+    xs, us = torch.as_tensor(x).reshape(4, 4, 5), torch.as_tensor(u).reshape(4, 4, 2)
+    whole = ctrl.lin(xs, us)
+    part = ctrl.lin(xs[2:], us[2:])
+    assert us[2:].storage_offset() > 0
+    for w, p in zip(whole, part):
+        np.testing.assert_array_equal(p.numpy(), w[2:].numpy())
+
+
+def test_irk_sharded_rollout_rows_equal_unsharded():
+    """An IRK campaign over a 2-device mesh gives the unsharded rows (each
+    shard's linearization takes its rows as views into the batch)."""
+    spec = WorldSpec(tf=0.5, n_solv=5, n_obst=3, qp_iter=4)
+    opts = SolverOptions(qp_iter=4)
+    assert opts.integrator == "irk"
+    kw = dict(n_runs=4, max_iter=4, dtype=torch.float64, device="cpu")
+    whole = run_scenario_batch(spec, opts, "RANDOM", **kw)
+    sharded = run_scenario_batch(spec, opts, "RANDOM",
+                                 mesh=make_data_mesh([torch.device("cpu")] * 2), **kw)
+    np.testing.assert_array_equal(sharded, whole)
+
+
+# ---------------------------------------------------------------------------
+# the block LU against the JAX functions, and kernel K3's source on the host
+# ---------------------------------------------------------------------------
+
+DTYPES = pytest.mark.parametrize("dtype,atol", [(np.float64, 1e-13), (np.float32, 1e-5)],
+                                 ids=["f64", "f32"])
+
+
+def _jf(seed, nb=6, s=4):
+    """Stage Jacobians of the unicycle's size, entries N(0, 1)."""
+    return np.random.default_rng(seed).standard_normal((nb, s, 5, 5))
+
+
+def _t(a, dtype):
+    return torch.as_tensor(a.astype(dtype))
+
+
+@DTYPES
+def test_inv_small_matches_jax(dtype, atol):
+    D = np.eye(5) + 0.3 * np.random.default_rng(8).standard_normal((7, 5, 5))
+    got = integrators._inv_small(_t(D, dtype))
+    want = j_int._inv_small(jnp.asarray(D.astype(dtype)))
+    assert got.dtype == _t(D, dtype).dtype
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+    np.testing.assert_allclose((got.double() @ torch.as_tensor(D)).numpy(),
+                               np.broadcast_to(np.eye(5), D.shape), rtol=0, atol=10 * atol)
+
+
+@DTYPES
+@pytest.mark.parametrize("kind,stages", SCHEMES)
+def test_newton_blocks_and_block_lu_match_jax(dtype, atol, kind, stages):
+    A = butcher_tableau(kind, stages)[0].astype(dtype)
+    Jf = _jf(9, s=stages).astype(dtype)
+    M = integrators._newton_blocks(torch.as_tensor(A), torch.as_tensor(Jf), DT)
+    Mj = j_int._newton_blocks(jnp.asarray(A), jnp.asarray(Jf), DT)
+    np.testing.assert_allclose(M.numpy(), np.asarray(Mj), rtol=0, atol=atol)
+    LU, invd = integrators._block_lu(M)
+    LUj, invdj = j_int._block_lu(Mj)
+    np.testing.assert_allclose(LU.numpy(), np.asarray(LUj), rtol=0, atol=atol)
+    for g, w in zip(invd, invdj):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=atol)
+    r = np.random.default_rng(10).standard_normal(Jf.shape[:-1]).astype(dtype)
+    got = integrators._block_solve(LU, invd, torch.as_tensor(r))
+    want = j_int._block_solve(LUj, invdj, jnp.asarray(r))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("k", [1, 7])
+def test_irk_newton_solve_solves_the_dense_system(k):
+    """K3's plain version against a dense solve of M = I - h (A (x) Jf) in
+    f64, and each column as JAX's ``_block_solve`` solves one vector; on CPU
+    tensors the wrapper is the plain version."""
+    A = butcher_tableau("gauss_legendre", 4)[0]
+    Jf = _jf(11)
+    rhs = np.random.default_rng(12).standard_normal((6, 4, 5, k))
+    At, Jt, rt = torch.as_tensor(A), torch.as_tensor(Jf), torch.as_tensor(rhs)
+    got = irk_newton_solve_ref(Jt, At, DT, rt)
+    assert got.shape == rhs.shape
+    np.testing.assert_array_equal(irk_newton_solve(Jt, At, DT, rt).numpy(), got.numpy())
+    M = np.einsum("ij,nirc->nircj", -DT * A, Jf)           # (n, s, nx, nx, s)
+    dense = np.eye(20) + np.transpose(M, (0, 1, 2, 4, 3)).reshape(6, 20, 20)
+    np.testing.assert_allclose(got.reshape(6, 20, k).numpy(),
+                               np.linalg.solve(dense, rhs.reshape(6, 20, k)), rtol=0, atol=1e-13)
+    LUj, invdj = j_int._block_lu(j_int._newton_blocks(jnp.asarray(A), jnp.asarray(Jf), DT))
+    for c in range(k):
+        want = j_int._block_solve(LUj, invdj, jnp.asarray(rhs[..., c]))
+        np.testing.assert_allclose(got[..., c].numpy(), np.asarray(want), rtol=0, atol=1e-13)
+
+
+def test_k3_input_checks_raise():
+    """What kernel K3 does not take raises (checked before a launch)."""
+    A = torch.as_tensor(butcher_tableau("gauss_legendre", 4)[0])
+    Jf, rhs = torch.zeros(3, 4, 5, 5, dtype=torch.float64), torch.zeros(3, 4, 5, 7,
+                                                                         dtype=torch.float64)
+    check = integrators._check_cuda_inputs
+    check(Jf, A, rhs)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        check(Jf.half(), A.half(), rhs.half())
+    with pytest.raises(TypeError, match="rhs is"):
+        check(Jf, A, rhs.float())
+    with pytest.raises(ValueError, match="nx = 5"):
+        check(torch.zeros(3, 4, 6, 6, dtype=torch.float64), A, rhs)
+    with pytest.raises(ValueError, match="s in"):
+        check(torch.zeros(3, 5, 5, 5, dtype=torch.float64), torch.zeros(5, 5, dtype=torch.float64),
+              torch.zeros(3, 5, 5, 7, dtype=torch.float64))
+    with pytest.raises(ValueError, match="k in"):
+        check(Jf, A, torch.zeros(3, 4, 5, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="A has shape"):
+        check(Jf, A[:3, :3], rhs)
+    with pytest.raises(ValueError, match="not contiguous"):
+        check(Jf, A, torch.zeros(3, 4, 7, 5, dtype=torch.float64).transpose(-1, -2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        irk_newton_solve(Jf.to("meta"), A.to("meta"), DT, rhs.to("meta"))
+
+
+_HARNESS = """
+#include "irk_newton.cu"
+extern "C" int host_irk_newton_f64(const double* jf, const double* a, double h,
+                                   const double* rhs, double* out, long long rows, int s, int k) {
+  return irkn::host_solve<double>(s, k, jf, a, h, rhs, out, rows);
+}
+extern "C" int host_irk_newton_f32(const float* jf, const float* a, double h,
+                                   const float* rhs, float* out, long long rows, int s, int k) {
+  return irkn::host_solve<float>(s, k, jf, a, h, rhs, out, rows);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_k3(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("host_irk_newton")
+    src = d / "harness.cpp"
+    src.write_text(_HARNESS)
+    lib = d / "libhost.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-I", os.path.dirname(integrators.KERNEL_SOURCE),
+                    "-o", str(lib), str(src)], check=True, timeout=120)
+    so = ctypes.CDLL(str(lib))
+    for fn in (so.host_irk_newton_f64, so.host_irk_newton_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+        fn.restype = ctypes.c_int
+    return so
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-13), (torch.float32, 2e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("k", [1, 7])
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+def test_kernel_source_on_host_matches_plain(host_k3, stages, k, dtype, atol):
+    """K3's body (``csrc/irk_newton.cu``), built by g++ as one row after
+    another, against its plain version: 1e-13 in f64; in f32 2e-5, the
+    rounding of a different summation order in the 5x5 products."""
+    A = torch.as_tensor(butcher_tableau("gauss_legendre", stages)[0], dtype=dtype)
+    Jf = torch.as_tensor(_jf(13, nb=9, s=stages), dtype=dtype)
+    rhs = torch.as_tensor(np.random.default_rng(14).standard_normal((9, stages, 5, k)),
+                          dtype=dtype)
+    out = torch.full_like(rhs, float("nan"))
+    fn = host_k3.host_irk_newton_f64 if dtype == torch.float64 else host_k3.host_irk_newton_f32
+    assert fn(Jf.data_ptr(), A.data_ptr(), DT, rhs.data_ptr(), out.data_ptr(), 9, stages, k) == 0
+    want = irk_newton_solve_ref(Jf, A, DT, rhs)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=atol)
+    assert fn(Jf.data_ptr(), A.data_ptr(), DT, rhs.data_ptr(), out.data_ptr(), 9, stages, 2) == -1
 
 
 def test_tf32_stays_off_after_import():
