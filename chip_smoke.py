@@ -8,11 +8,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 It builds kernels K1 (``doa_mpc_tpu_torch/csrc/ip_solve.cu``, two
 instantiations: generic and unicycle structure), K2
 (``doa_mpc_tpu_torch/csrc/riccati.cu``) and K3
-(``doa_mpc_tpu_torch/csrc/irk_newton.cu``, the IRK Newton solve by block LU)
-with nvcc for sm_90a, and the operation counter ``csrc/op_count.cpp``
+(``doa_mpc_tpu_torch/csrc/irk_step.cu``, the whole IRK step of the unicycle:
+its Newton iterations by block LU and its sensitivities) with nvcc for
+sm_90a, and the operation counter ``csrc/op_count.cpp``
 (``ops/op_count.py``) with g++, one compiler per source, all at once. It
 holds each kernel against its plain PyTorch version (K1 in both
-instantiations; K3 on the Jacobians of a real IRK tick, f32 and f64, in
+instantiations; K3 on the states of a real IRK tick, f32 and f64, in
 phase 5), and drives two paths through the
 seed-matched Monte-Carlo cell ``20221031_215846`` (RANDOM, TF 2.0, N 20, M
 5, 100 seeds x 400 ticks, rk4, 6 IP iterations, f32): the ``fused`` backend
@@ -44,9 +45,9 @@ It times the control ticks (phase 5 takes the fused ticks from the
 ``bench`` command's ``measure`` and prints its JSON line) and the kernels
 (device time from CUDA events around launches queued behind a spin kernel;
 K1 for each instantiation and K2 at B=4096 and B=1), computes each
-kernel's bound from its bytes and its counted operations
-(``utils/profiling.py``), times K3 against the library's pivoted LU at
-the same shapes, and prints one line per phase.
+kernel's bound from its bytes (``utils/profiling.py``) and the operations
+its outputs need, counted from its code (``ops/op_count.py``), and prints
+one line per phase.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result; it also does so without CUDA or
@@ -80,9 +81,9 @@ SOLVER_WARMUP, SOLVER_REPS = 5, 20
 # robot reaches the goal at tick 135): the ticks are host-bound, so the
 # script's time goes with ticks, not seeds
 TICKS10, TICKS_DEMO = 100, 200
-# K3 launches per IRK tick: 3 Newton solves and 1 sensitivity solve in the
-# linearization, 3 Newton solves in the plant step
-K3_PER_TICK = 7
+# K3 launches per IRK tick: the linearization's step (with the
+# sensitivities) and the plant step
+K3_PER_TICK = 2
 
 
 _LAP = [time.time()]
@@ -272,7 +273,7 @@ def main():
         _die("torch is not installed")
     if not torch.cuda.is_available():
         _die("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
-    for src in ("ip_solve.cu", "riccati.cu", "irk_newton.cu"):
+    for src in ("ip_solve.cu", "riccati.cu", "irk_step.cu"):
         if not os.path.isfile(os.path.join(REPO, "doa_mpc_tpu_torch", "csrc", src)):
             _die("run from the root of a checkout: doa_mpc_tpu_torch/ is missing")
     sys.path.insert(0, REPO)
@@ -282,7 +283,7 @@ def main():
     from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
     from doa_mpc_tpu_torch import bench, cli
     from doa_mpc_tpu_torch.ops import cuda_build, integrators, ip_fused, ip_qp, riccati_fused
-    from doa_mpc_tpu_torch.ops.integrators import irk_newton_solve, irk_newton_solve_ref
+    from doa_mpc_tpu_torch.ops.integrators import irk_step_fused, irk_step_ref
     from doa_mpc_tpu_torch.ops.ip_fused import (
         GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
     from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
@@ -301,8 +302,8 @@ def main():
     from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
     from doa_mpc_tpu_torch.utils.profiling import (
-        F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes, irk_newton_bytes,
-        irk_newton_ops, time_fn)
+        F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes, irk_step_bytes,
+        time_fn)
 
     dev = torch.device("cuda", 0)
     card = device_label(dev)
@@ -334,7 +335,21 @@ def main():
           + "; ".join(f"{name} {sec:.2f} s -> {os.path.relpath(path, REPO)}, ptxas: "
                       + " | ".join(cuda_build.ptxas_report(path))
                       for name, (path, sec) in zip(("K1", "K2", "K3"), builds[:3])), flush=True)
+    spills = [ln for ln in cuda_build.ptxas_report(builds[2][0])
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    _check(not spills, f"K3: ptxas reports spills: {spills}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k3_plans = {(dt_, sens_): integrators.plan(4, sens_, dt_)
+                for dt_ in (torch.float32, torch.float64) for sens_ in (True, False)}
+    _check(all(p_["blocks_per_sm"] > 0 for p_ in k3_plans.values()),
+           f"K3: occupancy API reports {k3_plans}")
+    print(f"phase 2 K3 (s=4; no spill in any instantiation): "
+          + "; ".join(f"{str(dt_).removeprefix('torch.')} {'with' if sens_ else 'without'} D: "
+                      f"team of {p_['team']} lanes, {p_['rows_per_block']} rows per one-warp "
+                      f"block, {p_['smem_bytes']} B of shared memory per block, "
+                      f"{p_['blocks_per_sm']} blocks ({p_['blocks_per_sm'] * p_['rows_per_block']}"
+                      f" rows) resident per SM" for (dt_, sens_), p_ in k3_plans.items()),
+          flush=True)
     for sname, st in STRUCTURES.items():
         per_sm = ip_fused.occupancy(N, M, st)
         _check(per_sm > 0, f"K1 {sname}: occupancy API reports {per_sm}")
@@ -422,7 +437,7 @@ def main():
     # ---- phase 4: main path, seed-matched cell 20221031_215846 -------------
     # the leg prod_rk4_qp6 (rk4, fused, 6 IP iterations, f32) through
     # sim/parity.py, the cell run alone
-    kernels = (solve_ocp_qp_fused, riccati_solve_fused, irk_newton_solve)
+    kernels = (solve_ocp_qp_fused, riccati_solve_fused, irk_step_fused)
     leg_prod = parity.load_leg(os.path.join(PARITY_R5, "prod_rk4_qp6"))
     s_prod = parity.leg_settings(leg_prod)
     _check((s_prod.backend, s_prod.integrator, s_prod.qp_iter_override, s_prod.status4,
@@ -471,22 +486,22 @@ def main():
     # and the plant)
     ctrl_irk = make_rti_controller(spec, SolverOptions(qp_iter=QP_ITER, compat_pred_bug=True),
                                    dtype=torch.float32, device=dev)
-    irk_newton_solve.launches = 0
+    irk_step_fused.launches = 0
     irk_ms = {(b_, be): tick_ms(b_, be, ctrl_irk)
               for b_ in (B_MAIN, 1) for be in ("fused", "zero")}
-    k3_ticks = irk_newton_solve.launches
+    k3_ticks = irk_step_fused.launches
     _check(k3_ticks > 0 and k3_ticks % K3_PER_TICK == 0,
            f"phase 5: the IRK ticks launched K3 {k3_ticks} times, not {K3_PER_TICK} per tick")
 
-    # K3 on the Jacobians of a real IRK tick at B=4096: the linearization's
-    # first Newton solve and its sensitivity solve (B*N rows, k = 1 and 7)
-    # and the plant step's first (B rows, k = 1), captured from the tick
+    # K3 on the states of a real IRK tick at B=4096: the linearization's
+    # step over the B*N stage points (with D) and the plant step over the B
+    # rows, captured from the tick
     k3_in = []
-    real_k3 = integrators.irk_newton_solve
+    real_k3 = integrators.irk_step_fused
 
-    def capture_k3(Jf, A, h, rhs):
-        k3_in.append((Jf.clone(), A, h, rhs.clone()))
-        return real_k3(Jf, A, h, rhs)
+    def capture_k3(*args):
+        k3_in.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real_k3(*args)
 
     # the wrapper counts its launch on the function its module name holds
     capture_k3.launches = 0
@@ -496,65 +511,65 @@ def main():
     tk3 = make_batched_tick(ctrl_irk, goal, params, generator=gen3)
     for _ in range(3):                    # past the cold start
         st3 = tk3(st3)
-    integrators.irk_newton_solve = capture_k3
+    integrators.irk_step_fused = capture_k3
     try:
         tk3(st3)
     finally:
-        integrators.irk_newton_solve = real_k3
+        integrators.irk_step_fused = real_k3
     torch.cuda.synchronize()
     _check(len(k3_in) == K3_PER_TICK, f"phase 5: {len(k3_in)} K3 calls in one IRK tick")
-    k3_shapes = {"lin_k7": k3_in[3], "lin_k1": k3_in[0], "plant_k1": k3_in[4]}
-    _check(tuple(k3_shapes["lin_k7"][3].shape) == (B_MAIN * N, 4, 5, 7)
-           and tuple(k3_shapes["plant_k1"][3].shape) == (B_MAIN, 4, 5, 1),
-           f"phase 5: K3 inputs of shapes {[tuple(c[3].shape) for c in k3_in]}")
+    k3_calls = {("lin" if c[7] else "plant"): c for c in k3_in}
+    _check(set(k3_calls) == {"lin", "plant"}
+           and tuple(k3_calls["lin"][0].shape) == (B_MAIN * N, 5)
+           and tuple(k3_calls["plant"][0].shape) == (B_MAIN, 5),
+           f"phase 5: K3 calls of rows {[tuple(c[0].shape) for c in k3_in]}, sensitivities "
+           f"{[c[7] for c in k3_in]}")
+
+    def outs(v, sens):
+        return v if sens else (v,)
+
     k3_rows, k3_err = {}, 0.0
-    for name, (Jf3, A3, h3, r3) in k3_shapes.items():
-        want64 = irk_newton_solve_ref(Jf3.double(), A3.double(), h3, r3.double())
-        got64 = irk_newton_solve(Jf3.double(), A3.double(), h3, r3.double())
-        got32 = irk_newton_solve(Jf3, A3, h3, r3)
-        plain32 = irk_newton_solve_ref(Jf3, A3, h3, r3)
+    for name, (x3, u3, A3, b3, h3, it3, ns3, sens3) in k3_calls.items():
+        rest = (h3, it3, ns3, sens3)
+        args64 = [t.double() for t in (x3, u3, A3, b3)]
+        want64 = outs(irk_step_ref(*args64, *rest), sens3)
+        got64 = outs(irk_step_fused(*args64, *rest), sens3)
+        got32 = outs(irk_step_fused(x3, u3, A3, b3, *rest), sens3)
+        plain32 = outs(irk_step_ref(x3, u3, A3, b3, *rest), sens3)
         torch.cuda.synchronize()
-        scale = max(1.0, float(want64.abs().max()))
-        rel64 = float((got64 - want64).abs().max()) / scale
-        e_k = float((got32.double() - want64).abs().max())
-        e_p = float((plain32.double() - want64).abs().max())
-        err32 = float((got32 - plain32).abs().max())
-        _check(rel64 <= 1e-12, f"K3 f64 {name}: relative max|kernel - plain| {rel64:.3e} > 1e-12")
-        _check(np.isfinite(e_k) and e_k <= max(2 * e_p, 1e-6),
-               f"K3 f32 {name}: {e_k:.3e} from the f64 plain output, plain f32 {e_p:.3e}")
-        k3_rows[name] = dict(rows=r3.shape[0], k=r3.shape[3], rel64=rel64, err32=err32, e_k=e_k,
-                             e_p=e_p)
-        if name == "lin_k7":
-            k3_err = err32
-    # device times: the kernel, its plain version, and the library's pivoted
-    # LU (lu_factor_ex + lu_solve on the dense 20x20 M) on the same inputs
+        for o, w, g, g32, p32 in zip(("Phi", "D"), want64, got64, got32, plain32):
+            rel64 = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            e_k = float((g32.double() - w).abs().max())
+            e_p = float((p32.double() - w).abs().max())
+            err32 = float((g32 - p32).abs().max())
+            _check(rel64 <= 1e-12,
+                   f"K3 f64 {name} {o}: relative max|kernel - plain| {rel64:.3e} > 1e-12")
+            _check(np.isfinite(e_k) and e_k <= max(2 * e_p, 1e-6),
+                   f"K3 f32 {name} {o}: {e_k:.3e} from the f64 plain output, plain f32 "
+                   f"{e_p:.3e}")
+            k3_rows[f"{name} {o}"] = dict(rows=x3.shape[0], rel64=rel64, err32=err32, e_k=e_k,
+                                          e_p=e_p)
+            if name == "lin":
+                k3_err = max(k3_err, err32)
+        # slices of the rows alone give the bits they have in the full batch
+        rows3 = x3.shape[0]
+        for sl in (slice(0, 1), slice(1000, 1037), slice(rows3 - 20, rows3)):
+            part = outs(irk_step_fused(x3[sl].clone(), u3[sl].clone(), A3, b3, *rest), sens3)
+            _check(all(torch.equal(p, g[sl]) for p, g in zip(part, got32)),
+                   f"K3 {name}: rows {sl.start}-{sl.stop} alone differ from the full batch")
+    # device times of the kernel (one launch per call) and of its plain
+    # version, on the captured inputs
     k3_times = {}
-    for name in ("lin_k7", "plant_k1"):
-        Jf3, A3, h3, r3 = k3_shapes[name]
-        rows3, kk = r3.shape[0], r3.shape[3]
-        blocks = integrators._newton_blocks(A3, Jf3, h3)
-        M3 = blocks.transpose(-3, -2).reshape(rows3, 20, 20).contiguous()
-        b3 = r3.reshape(rows3, 20, kk).contiguous()
-
-        def library(M3=M3, b3=b3):
-            LU3, piv3, _ = torch.linalg.lu_factor_ex(M3)
-            return torch.linalg.lu_solve(LU3, piv3, b3)
-
-        lib_err = float((library().reshape(r3.shape).double()
-                         - irk_newton_solve_ref(Jf3.double(), A3.double(), h3,
-                                                r3.double())).abs().max())
-        nbytes = irk_newton_bytes(rows3, 4, kk, 4)
-        nops = rows3 * irk_newton_ops(4, kk)
+    for name, (x3, u3, A3, b3, h3, it3, ns3, sens3) in k3_calls.items():
+        rows3, s3 = x3.shape[0], A3.shape[0]
+        nbytes = irk_step_bytes(rows3, s3, sens3, 4)
+        nops = opc.irk_step(rows3, s3, it3, ns3, sens3)
         bound3, by3 = bound(nbytes, nops)
+        args = (x3, u3, A3, b3, h3, it3, ns3, sens3)
         k3_times[name] = dict(
-            rows=rows3, k=kk,
-            ms=kernel_device_ms(torch, lambda J=Jf3, A_=A3, h_=h3, r=r3: irk_newton_solve(
-                J, A_, h_, r), 20),
-            plain_ms=time_ms(torch, lambda J=Jf3, A_=A3, h_=h3, r=r3: irk_newton_solve_ref(
-                J, A_, h_, r), reps=3, warmup=1),
-            # the library pair blocks the host (a spin-queued timing cannot
-            # queue its calls), so it is timed with CUDA events around calls
-            library_ms=time_ms(torch, library, reps=20, warmup=2), library_err=lib_err,
+            rows=rows3, sens=sens3,
+            ms=kernel_device_ms(torch, lambda a=args: irk_step_fused(*a), 20),
+            plain_ms=time_ms(torch, lambda a=args: irk_step_ref(*a), reps=3, warmup=1),
             bytes=nbytes, ops=nops, bound_ms=bound3, bound_by=by3)
     with open(os.path.join(OUT_DIR, "phase5_k3.json"), "w") as f:
         json.dump({"check": k3_rows, "times": k3_times}, f, indent=1)
@@ -599,18 +614,16 @@ def main():
           + "; ".join(f"{s_} B={b_} {v:.4f} ms" for (s_, b_), v in k1_dev.items())
           + f" | unicycle wrapper (normalize + launch, CUDA events) "
           f"{k1_call_ms:.4f} ms at B={B_MAIN}, {k1_call_ms_1:.4f} ms at B=1; plain version "
-          f"{plain_ms:.3f} ms/solve | K3 on a real IRK tick's inputs (B={B_MAIN}): "
-          + "; ".join(f"{k} ({v['rows']} rows, k={v['k']}) f64 rel max|kernel-plain| "
-                      f"{v['rel64']:.2e} (limit 1e-12), f32 max|kernel-plain| {v['err32']:.2e}, "
-                      f"vs f64 kernel/plain {v['e_k']:.2e}/{v['e_p']:.2e}"
-                      for k, v in k3_rows.items())
-          + "; device time (CUDA events behind a spin, 20 launches): "
-          + "; ".join(f"{k} ({v['rows']} rows, k={v['k']}) {v['ms']:.4f} ms, bound "
-                      f"{v['bound_ms']:.5f} ms ({v['bound_by']}: {v['bytes']} B, {v['ops']} "
-                      f"operations), plain version {v['plain_ms']:.3f} ms, library LU "
-                      f"(lu_factor_ex + lu_solve, CUDA events around 20 calls) "
-                      f"{v['library_ms']:.4f} ms (max|err| vs f64 "
-                      f"{v['library_err']:.1e})" for k, v in k3_times.items())
+          f"{plain_ms:.3f} ms/solve | K3 on a real IRK tick's states (B={B_MAIN}): "
+          + "; ".join(f"{k} ({v['rows']} rows) f64 rel max|kernel-plain| {v['rel64']:.2e} "
+                      f"(limit 1e-12), f32 max|kernel-plain| {v['err32']:.2e}, vs f64 "
+                      f"kernel/plain {v['e_k']:.2e}/{v['e_p']:.2e}" for k, v in k3_rows.items())
+          + "; rows alone = rows in the batch (3 slices each); device time (CUDA events "
+          "behind a spin, 20 launches): "
+          + "; ".join(f"{k} ({v['rows']} rows{', with D' if v['sens'] else ''}) "
+                      f"{v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ms ({v['bound_by']}: "
+                      f"{v['bytes']} B, {v['ops']} operations), plain version "
+                      f"{v['plain_ms']:.3f} ms" for k, v in k3_times.items())
           + f"; K3 launches in the IRK ticks {k3_ticks} ({K3_PER_TICK} per tick)"
           f" | peak mem {mem:.0f} MiB; card={card}; wall {lap():.1f} s", flush=True)
 
@@ -760,13 +773,13 @@ def main():
         """``run_scenario_batch`` with the launch counts set to 0 before each
         (configuration, scenario) and read after it."""
         solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
-        irk_newton_solve.launches = 0
+        irk_step_fused.launches = 0
         t0 = time.time()
         d = run_batch(spec_, opts_, scenario, **kw)
         runs10.append(dict(N=spec_.n_solv, M=spec_.n_obst, qp_iter=opts_.qp_iter,
                            integrator=opts_.integrator, scenario=scenario,
                            k1=solve_ocp_qp_fused.launches, k2=riccati_solve_fused.launches,
-                           k3=irk_newton_solve.launches,
+                           k3=irk_step_fused.launches,
                            hit=d[:, 0].mean(), reached=d[:, 1].mean(), wall_s=time.time() - t0))
         return d
 
@@ -1111,12 +1124,12 @@ def main():
     same_rows = int((d2 == d_ref).all(1).sum())
     # (c) the same cell with IRK (the default integrator): unsharded, then as
     # two ranks, whose rows must be the unsharded rows
-    solve_ocp_qp_fused.launches = irk_newton_solve.launches = 0
+    solve_ocp_qp_fused.launches = irk_step_fused.launches = 0
     t0 = time.time()
     d_irk = run_scenario_batch(spec14, SolverOptions(qp_iter=QP_ITER, integrator="irk"),
                                "RANDOM", n_runs=100, max_iter=400, dtype=torch.float32,
                                backend="fused", device=dev)
-    wall14c, k14c = time.time() - t0, (solve_ocp_qp_fused.launches, irk_newton_solve.launches)
+    wall14c, k14c = time.time() - t0, (solve_ocp_qp_fused.launches, irk_step_fused.launches)
     _check(k14c == (400, 400 * K3_PER_TICK), f"phase 14 IRK unsharded: K1, K3 launches {k14c}")
     d2_irk, wall14d = two_ranks("irk")
     same_irk = int((d2_irk == d_irk).all(1).sum())
@@ -1180,12 +1193,12 @@ def main():
     runs16 = {}
     for where in (dev, torch.device("cpu")):
         solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
-        irk_newton_solve.launches = 0
+        irk_step_fused.launches = 0
         with (plain_forbidden(ip_qp, riccati_fused) if where.type == "cuda"
               else contextlib.nullcontext()):
             rows16, fin16, wall16 = parity.run_group(cell16, s16, s16.seeds, where)
         runs16[where.type] = (rows16["RANDOM"], fin16.x0.cpu(), riccati_solve_fused.launches,
-                              solve_ocp_qp_fused.launches, irk_newton_solve.launches, wall16)
+                              solve_ocp_qp_fused.launches, irk_step_fused.launches, wall16)
     want16 = s16.max_iter * cell16[0]["qp_iter"] * 2
     want16_k3 = s16.max_iter * K3_PER_TICK
     _check(runs16["cuda"][2:5] == (want16, 0, want16_k3) and runs16["cpu"][2:5] == (0, 0, 0),
@@ -1234,16 +1247,15 @@ def main():
                 "launches": k2_demo, "max_abs_err": k2_err,
                 "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
                 "library_ms": None},
-               {"name": "irk_newton_kernel (K3; every launch of the IRK path counted, timed "
-                        "at the linearization's sensitivity solve: f32, s=4, k=7, B*N = 81,920 "
-                        "rows)", "route": "cuda",
-                "source": "doa_mpc_tpu_torch/csrc/irk_newton.cu",
-                "replaces": "doa_mpc_tpu/ops/integrators.py:218",
+               {"name": "irk_step_kernel (K3, the whole IRK step; every launch of the IRK "
+                        "path counted, timed at the linearization's step: f32, s=4, 3 Newton "
+                        "iterations, with D, B*N = 81,920 rows)", "route": "cuda",
+                "source": "doa_mpc_tpu_torch/csrc/irk_step.cu",
+                "replaces": "doa_mpc_tpu/ops/integrators.py:107",
                 "launches": runs9a[0]["launches"][2], "max_abs_err": k3_err,
-                "ms": k3_times["lin_k7"]["ms"], "plain_ms": k3_times["lin_k7"]["plain_ms"],
-                "bound_ms": k3_times["lin_k7"]["bound_ms"],
-                "bound_by": k3_times["lin_k7"]["bound_by"],
-                "library_ms": k3_times["lin_k7"]["library_ms"]}]
+                "ms": k3_times["lin"]["ms"], "plain_ms": k3_times["lin"]["plain_ms"],
+                "bound_ms": k3_times["lin"]["bound_ms"], "bound_by": k3_times["lin"]["bound_by"],
+                "library_ms": None}]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

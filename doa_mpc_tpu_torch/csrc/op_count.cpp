@@ -1,5 +1,6 @@
-// Arithmetic-operation counts of kernels K1 (ip_solve.cu) and K2
-// (riccati.cu): the work each scenario's inputs need.
+// Arithmetic-operation counts of kernels K1 (ip_solve.cu), K2 (riccati.cu)
+// and K3 (irk_step.cu): the work each scenario's (K3: each row's) inputs
+// need.
 //
 // Host-only C++ (g++ -std=c++17 -O2 -shared -fPIC -pthread). It builds each
 // kernel's __host__ __device__ body with a number type F that records one
@@ -10,13 +11,15 @@
 //   value the body computes twice (a pair's deltas in the step-bound pass and
 //   again in the update pass, C dx in every pass) counts once;
 // - an operation with a literal zero or one (x + 0, x - 0, x * 0, x * 1,
-//   x / 1) is no operation: a product the code starts from T(0) adds nothing;
+//   x / 1) is no operation: a product the code starts from T(0) adds nothing,
+//   and K3's products with the entries its blocks hold at 0 or 1 outside Jf's
+//   corner (which it computes by the dense expression) are none;
 // - only the nodes that the outputs depend on are counted, through their
 //   values or through a comparison that steers the solve (the freeze test,
 //   the sign test of each step bound); the last iteration's dual updates,
 //   which no output reads, are not.
-// Counted: add, subtract, multiply, divide, square root (an FMA is two).
-// Not counted: min, max, abs, negation, comparisons. chip_smoke.py uses the
+// Counted: add, subtract, multiply, divide, square root, sine, cosine (an
+// FMA is two). Not counted: min, max, abs, negation, comparisons. chip_smoke.py uses the
 // counts for each kernel's bound_ms.
 
 #include <algorithm>
@@ -29,7 +32,7 @@
 
 namespace opc {
 
-enum Op : uint8_t { LEAF, LIT, ADD, SUB, MUL, DIV, SQRT, NEG, ABS, MAX, MIN };
+enum Op : uint8_t { LEAF, LIT, ADD, SUB, MUL, DIV, SQRT, SIN, COS, NEG, ABS, MAX, MIN };
 
 struct Node {
   uint32_t a, b;
@@ -102,7 +105,8 @@ struct Graph {
       Node& d = nodes[i];
       if (!d.live || d.op == LEAF || d.op == LIT) continue;
       nodes[d.a].live = nodes[d.b].live = 1;
-      n += d.op == ADD || d.op == SUB || d.op == MUL || d.op == DIV || d.op == SQRT;
+      n += d.op == ADD || d.op == SUB || d.op == MUL || d.op == DIV || d.op == SQRT ||
+           d.op == SIN || d.op == COS;
     }
     return n;
   }
@@ -149,6 +153,9 @@ inline F operator/(F a, F b) {
 }
 inline F& operator+=(F& a, F b) { return a = a + b; }
 inline F vsqrt(F a) { return F(std::sqrt(a.v), g.intern(SQRT, a.id, 0)); }
+// K3's sine and cosine (found by ADL)
+inline F sin_(F a) { return F(std::sin(a.v), g.intern(SIN, a.id, 0)); }
+inline F cos_(F a) { return F(std::cos(a.v), g.intern(COS, a.id, 0)); }
 inline F vabs(F a) { return F(std::fabs(a.v), g.intern(ABS, a.id, 0)); }
 // the kernels' NaN-propagating max / min, as selections (found by ADL)
 inline F pmax(F a, F b) { return op2(MAX, (a.v != a.v || a.v > b.v) ? a.v : b.v, a, b, false); }
@@ -174,6 +181,7 @@ void roots(const std::vector<F>& v) {
 
 #include "ip_solve.cu"
 #include "riccati.cu"
+#include "irk_step.cu"
 
 // K1 on B batch-first f64 QPs (already cost-normalized, the 17 OcpQp fields
 // in order), structure 0 generic / 1 unicycle: the sum over the scenarios of
@@ -240,4 +248,48 @@ extern "C" long long count_riccati(int N) {
   rck::host_solve<F>(p, true);
   for (auto* v : {&xo, &uo, &no}) opc::roots(*v);
   return opc::g.count();
+}
+
+// K3 on one row: s stages, newton_iter iterations, num_steps substeps, with
+// or without D. The tableau (A, its (-h) A, b, h) is a leaf like the row's
+// x and u: the kernel forms (-h) A per block, work the launch needs once,
+// not per row. Its work does not depend on the data.
+template <int S, bool SENS>
+long long count_irk_row(int newton_iter, int num_steps) {
+  using opc::F;
+  opc::g.reset();
+  irks::Tab<F> tb;
+  for (int i = 0; i < S; ++i) {
+    for (int j = 0; j < S; ++j) {
+      tb.A[i][j] = F::leaf(0.1 + 0.01 * (i * S + j));
+      tb.hA[i][j] = F::leaf(-0.01 - 0.001 * (i * S + j));
+    }
+    tb.b[i] = F::leaf(1.0 / S);
+  }
+  tb.h = F::leaf(0.1);
+  std::vector<double> xu = {0.3, -0.2, 0.7, 1.1, 0.05, 0.4, -0.6};
+  std::vector<F> x = opc::leaves(xu.data(), 5), u = opc::leaves(xu.data() + 5, 2);
+  std::vector<F> phi(5), D(SENS ? 35 : 0);
+  auto* m = new irks::Row<F, S, SENS>();
+  irks::Step<F, S, SENS> st{*m, tb, irks::Team{0, 0u, false}};
+  st.run(x.data(), u.data(), newton_iter, num_steps, phi.data(), SENS ? D.data() : nullptr);
+  delete m;
+  opc::roots(phi);
+  opc::roots(D);
+  return opc::g.count();
+}
+
+extern "C" long long count_irk_step(int s, int newton_iter, int num_steps, int sens) {
+  if (newton_iter < 0 || num_steps < 1) return -1;
+  switch (s * 2 + (sens ? 1 : 0)) {
+    case 2: return count_irk_row<1, false>(newton_iter, num_steps);
+    case 3: return count_irk_row<1, true>(newton_iter, num_steps);
+    case 4: return count_irk_row<2, false>(newton_iter, num_steps);
+    case 5: return count_irk_row<2, true>(newton_iter, num_steps);
+    case 6: return count_irk_row<3, false>(newton_iter, num_steps);
+    case 7: return count_irk_row<3, true>(newton_iter, num_steps);
+    case 8: return count_irk_row<4, false>(newton_iter, num_steps);
+    case 9: return count_irk_row<4, true>(newton_iter, num_steps);
+    default: return -1;
+  }
 }

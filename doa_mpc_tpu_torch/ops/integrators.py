@@ -6,12 +6,16 @@
   the host) with a fixed number of full-Newton iterations on the stacked
   stage derivatives, as acados' IRK with a fixed ``newton_iter``.
 
-Everything broadcasts over leading batch dimensions. The IRK Newton system
-is solved by the JAX package's block LU without pivoting, on CUDA tensors in
-one launch of kernel K3 (``csrc/irk_newton.cu``, :func:`irk_newton_solve`).
-The IRK sensitivities come from the implicit-function theorem at the
-converged stage states, not from differentiating through the Newton
-iterations: ``irk_step(..., sensitivities=True)`` returns them, and
+Everything broadcasts over leading batch dimensions. On CPU tensors the IRK
+step is the plain version: the JAX package's functions line for line
+(:func:`_irk_substep`, whose Newton system is solved by the block LU without
+pivoting, :func:`irk_newton_solve_ref`, and whose Jacobians come from
+``torch.func.jacfwd``). On CUDA tensors, for the unicycle's dynamics, the
+whole step (every substep, Newton iteration and the sensitivities) is one
+launch of kernel K3 (``csrc/irk_step.cu``, :func:`irk_step_fused`). The IRK
+sensitivities come from the implicit-function theorem at the converged
+stage states, not from differentiating through the Newton iterations:
+``irk_step(..., sensitivities=True)`` returns them, and
 :func:`make_linearization` reads the controller's (Phi, A, B) from them,
 where rk4 is differentiated by ``torch.func.jacfwd``.
 """
@@ -105,7 +109,8 @@ def rk4_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt,
 
 
 # ---------------------------------------------------------------------------
-# The collocation Newton solve: block LU without pivoting (kernel K3)
+# The collocation Newton solve: block LU without pivoting (the plain
+# version of kernel K3's factorization and solves)
 # ---------------------------------------------------------------------------
 
 def _inv_small(D: torch.Tensor) -> torch.Tensor:
@@ -176,96 +181,14 @@ def _block_solve(LU: torch.Tensor, invd, r: torch.Tensor) -> torch.Tensor:
 
 
 def irk_newton_solve_ref(Jf: torch.Tensor, A: torch.Tensor, h, rhs: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel K3: the blocks of M = I - h (A (x) Jf), their
-    block LU and the block-triangular solve M X = rhs, with JAX's functions'
-    order of operations. Jf (R, s, nx, nx), rhs (R, s, nx, k) -> (R, s, nx, k);
+    """The blocks of M = I - h (A (x) Jf), their block LU and the
+    block-triangular solve M X = rhs, with JAX's functions' order of
+    operations (what kernel K3 computes in each Newton iteration). Jf (R, s, nx, nx), rhs (R, s, nx, k) -> (R, s, nx, k);
     each of the k columns is solved as JAX solves one vector."""
     LU, invd = _block_lu(_newton_blocks(A, Jf, h))
     cols = rhs.movedim(-1, 1)                                  # (R, k, s, nx)
     X = _block_solve(LU.unsqueeze(1), [ik.unsqueeze(1) for ik in invd], cols)
     return X.movedim(1, -1)
-
-
-KERNEL_SOURCE = os.path.join(cuda_build.CSRC_DIR, "irk_newton.cu")
-K3_STAGES, K3_WIDTHS, K3_NX = (1, 2, 3, 4), (1, 7), 5
-
-
-def build_kernel() -> str:
-    """Compile ``csrc/irk_newton.cu`` into ``_build/`` at first use
-    (:func:`cuda_build.build`); returns the library path."""
-    return cuda_build.build(KERNEL_SOURCE)
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build_kernel())
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.irk_newton_f32, lib.irk_newton_f64):
-        fn.argtypes = [ptr, ptr, ctypes.c_double, ptr, ptr, i64, i32, i32, ptr]
-        fn.restype = i32
-    lib.irk_newton_error_string.argtypes = [i32]
-    lib.irk_newton_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_cuda_inputs(Jf, A, rhs) -> None:
-    """Raise on what kernel K3 does not take: a dtype other than float32 or
-    float64, mixed dtypes or devices, shapes other than Jf (R, s, 5, 5), A
-    (s, s), rhs (R, s, 5, k) with s in 1-4 and k in {1, 7}, or, after those,
-    an input that is not contiguous."""
-    if Jf.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernel K3 takes float32 or float64; Jf is {Jf.dtype}")
-    for name, t in (("A", A), ("rhs", rhs)):
-        if t.dtype != Jf.dtype:
-            raise TypeError(f"{name} is {t.dtype}, Jf is {Jf.dtype}")
-        if t.device != Jf.device:
-            raise ValueError(f"{name} is on {t.device}, Jf on {Jf.device}")
-    if Jf.ndim != 4 or rhs.ndim != 4:
-        raise ValueError(f"kernel K3 takes Jf (R, s, nx, nx) and rhs (R, s, nx, k); got "
-                         f"{tuple(Jf.shape)} and {tuple(rhs.shape)}")
-    rows, s = Jf.shape[:2]
-    if s not in K3_STAGES or tuple(Jf.shape[2:]) != (K3_NX, K3_NX):
-        raise ValueError(f"kernel K3 is built for s in {K3_STAGES} and nx = {K3_NX}; Jf has "
-                         f"shape {tuple(Jf.shape)}")
-    if tuple(A.shape) != (s, s):
-        raise ValueError(f"A has shape {tuple(A.shape)}, expected {(s, s)}")
-    if tuple(rhs.shape[:3]) != (rows, s, K3_NX) or rhs.shape[3] not in K3_WIDTHS:
-        raise ValueError(f"rhs has shape {tuple(rhs.shape)}, expected {(rows, s, K3_NX)} + "
-                         f"(k,) with k in {K3_WIDTHS}")
-    for name, t in (("Jf", Jf), ("A", A), ("rhs", rhs)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous: kernel K3 reads each row as one run")
-
-
-def irk_newton_solve(Jf: torch.Tensor, A: torch.Tensor, h, rhs: torch.Tensor) -> torch.Tensor:
-    """The collocation Newton solve M X = rhs, M = I - h (A (x) Jf) by blocks:
-    Jf (R, s, nx, nx), A (s, s), rhs (R, s, nx, k) -> X (R, s, nx, k).
-
-    CPU tensors run :func:`irk_newton_solve_ref`. CUDA tensors (float32 or
-    float64, nx = 5, s in 1-4, k in {1, 7}, contiguous) launch kernel K3
-    (``csrc/irk_newton.cu``) once, one thread per row, and add one to
-    ``irk_newton_solve.launches``; anything else raises."""
-    dev = Jf.device
-    if dev.type == "cpu":
-        return irk_newton_solve_ref(Jf, A, h, rhs)
-    if dev.type != "cuda":
-        raise ValueError(f"irk_newton_solve: unsupported device {dev}")
-    _check_cuda_inputs(Jf, A, rhs)
-    out = torch.empty_like(rhs)
-    lib = _library()
-    launch = lib.irk_newton_f32 if Jf.dtype == torch.float32 else lib.irk_newton_f64
-    with torch.cuda.device(dev):      # launch on the card that holds the data
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(Jf.data_ptr(), A.data_ptr(), float(h), rhs.data_ptr(), out.data_ptr(),
-                    rhs.shape[0], Jf.shape[1], rhs.shape[3], stream)
-    if rc != 0:
-        raise RuntimeError(f"irk_newton launch failed (rows={rhs.shape[0]}, s={Jf.shape[1]}, "
-                           f"k={rhs.shape[3]}): " + lib.irk_newton_error_string(rc).decode())
-    irk_newton_solve.launches += 1
-    return out
-
-
-irk_newton_solve.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +197,11 @@ irk_newton_solve.launches = 0
 
 def _stage_jacobians(f: Callable, Z: torch.Tensor, u: torch.Tensor, argnums):
     """Jacobians of f at each stage state, Z (..., s, nx), u (..., nu): one
-    contiguous (..., s, nx, n_arg) tensor per entry of ``argnums``."""
+    (..., s, nx, n_arg) tensor per entry of ``argnums``."""
     nx, nu = Z.shape[-1], u.shape[-1]
     u_b = u.unsqueeze(-2).expand(Z.shape[:-1] + (nu,))
     jac = vmap(jacfwd(f, argnums=argnums))(Z.reshape(-1, nx), u_b.reshape(-1, nu))
-    # contiguous: kernel K3 reads each row's Jacobians as one run
-    return [J.reshape(Z.shape + J.shape[-1:]).contiguous() for J in jac]
+    return [J.reshape(Z.shape + J.shape[-1:]) for J in jac]
 
 
 def _ordered_sum(P: torch.Tensor, dim: int) -> torch.Tensor:
@@ -300,14 +222,15 @@ def _stage_states(x, K, A, h):
 
 def _irk_substep(f, x, u, h, A, b, newton_iter, sensitivities):
     """One collocation substep over rows, x (R, nx), u (R, nu): Phi, and with
-    ``sensitivities`` also D = dPhi/d(x, u) (R, nx, nx + nu).
+    ``sensitivities`` also D = dPhi/d(x, u) (R, nx, nx + nu); the plain
+    version of one substep of kernel K3.
 
     The fixed Newton iterations solve the collocation system through
-    :func:`irk_newton_solve` (kernel K3 on the card), starting from
-    K_i = f(x, u). D comes from the implicit-function theorem at the
-    converged stage states, as the JAX package's ``custom_jvp`` rule gives
-    it: M (rebuilt there) dK = [Jf | Ju] solved for all nx + nu directions
-    in one call, D = [I | 0] + h sum_j b_j dK_j."""
+    :func:`irk_newton_solve_ref`, starting from K_i = f(x, u). D comes from
+    the implicit-function theorem at the converged stage states, as the JAX
+    package's ``custom_jvp`` rule gives it: M (rebuilt there) dK = [Jf | Ju]
+    solved for all nx + nu directions in one call, D = [I | 0] + h sum_j
+    b_j dK_j."""
     s, nx = A.shape[0], x.shape[-1]
     u_stage = u.unsqueeze(-2).expand(u.shape[:-1] + (s, u.shape[-1]))
     f0 = f(x, u)
@@ -316,13 +239,13 @@ def _irk_substep(f, x, u, h, A, b, newton_iter, sensitivities):
         Z = _stage_states(x, K, A, h)
         R = K - f(Z, u_stage)
         (Jf,) = _stage_jacobians(f, Z, u, (0,))
-        K = K - irk_newton_solve(Jf, A, h, R.unsqueeze(-1)).squeeze(-1)
+        K = K - irk_newton_solve_ref(Jf, A, h, R.unsqueeze(-1)).squeeze(-1)
     phi = x + h * _ordered_sum(b[:, None] * K, -2)
     if not sensitivities:
         return phi
     Z = _stage_states(x, K, A, h)
     Jf, Ju = _stage_jacobians(f, Z, u, (0, 1))
-    dK = irk_newton_solve(Jf, A, h, torch.cat([Jf, Ju], dim=-1))
+    dK = irk_newton_solve_ref(Jf, A, h, torch.cat([Jf, Ju], dim=-1))
     eye = torch.eye(nx, dK.shape[-1], dtype=x.dtype, device=x.device)
     return phi, eye + h * _ordered_sum(b[:, None, None] * dK, -3)
 
@@ -338,9 +261,12 @@ def irk_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt, *,
     full-Newton iterations on K (..., s, nx), starting from K_i = f(x, u);
     each iteration rebuilds the Jacobian of f at the current stage states
     and solves the (s nx x s nx) Newton system by the JAX package's block LU
-    without pivoting (:func:`irk_newton_solve`: kernel K3 on CUDA tensors,
-    its plain version on CPU tensors). Each row's arithmetic is its own, so
-    a row gives the same result whatever batch it runs in.
+    without pivoting. CPU tensors run the plain version (:func:`irk_step_ref`);
+    CUDA tensors launch kernel K3 once for the whole step
+    (:func:`irk_step_fused`), which takes ``f`` = the unicycle's
+    ``models.unicycle.dynamics`` only and raises on anything it does not
+    take. Each row's arithmetic is its own, so a row gives the same result
+    whatever batch it runs in.
 
     Returns Phi (..., nx), or with ``sensitivities`` (Phi, D), D =
     dPhi/d(x, u) (..., nx, nx + nu) from the implicit-function theorem
@@ -351,6 +277,31 @@ def irk_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt, *,
     h = dt / num_steps
     lead, nx, nu = x.shape[:-1], x.shape[-1], u.shape[-1]
     x, u = x.reshape(-1, nx), u.expand(lead + (nu,)).reshape(-1, nu)
+    if x.device.type == "cpu":
+        out = irk_step_ref(x, u, A, b, h, newton_iter, num_steps, sensitivities, f=f)
+    elif x.device.type == "cuda":
+        from doa_mpc_tpu_torch.models.unicycle import dynamics
+
+        if f is not dynamics:
+            raise ValueError(f"kernel K3 integrates models.unicycle.dynamics only, not {f!r}")
+        out = irk_step_fused(x, u, A, b, h, newton_iter, num_steps, sensitivities)
+    else:
+        raise ValueError(f"irk_step: unsupported device {x.device}")
+    if not sensitivities:
+        return out.reshape(lead + (nx,))
+    phi, D = out
+    return phi.reshape(lead + (nx,)), D.reshape(lead + D.shape[-2:])
+
+
+def irk_step_ref(x: torch.Tensor, u: torch.Tensor, A: torch.Tensor, b: torch.Tensor, h,
+                 newton_iter: int, num_steps: int, sensitivities: bool, f: Callable = None):
+    """Plain version of kernel K3 (:func:`irk_step_fused`, the same
+    arguments): ``num_steps`` :func:`_irk_substep` calls of size ``h`` over
+    rows x (R, nx), u (R, nu), D chained by products; ``f`` defaults to the
+    unicycle's dynamics. :func:`irk_step` calls it on CPU tensors only."""
+    if f is None:
+        from doa_mpc_tpu_torch.models.unicycle import dynamics as f
+    nx = x.shape[-1]
     D = None
     for _ in range(num_steps):
         if not sensitivities:
@@ -359,8 +310,116 @@ def irk_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt, *,
         x, Ds = _irk_substep(f, x, u, h, A, b, newton_iter, True)
         D = Ds if D is None else torch.cat(
             [Ds[..., :nx] @ D[..., :nx], Ds[..., :nx] @ D[..., nx:] + Ds[..., nx:]], dim=-1)
-    x = x.reshape(lead + (nx,))
-    return x if D is None else (x, D.reshape(lead + D.shape[-2:]))
+    return x if D is None else (x, D)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3: the whole IRK step of the unicycle on the card
+# ---------------------------------------------------------------------------
+
+KERNEL_SOURCE = os.path.join(cuda_build.CSRC_DIR, "irk_step.cu")
+K3_STAGES, K3_NX, K3_NU = (1, 2, 3, 4), 5, 2
+
+
+def build_kernel() -> str:
+    """Compile ``csrc/irk_step.cu`` into ``_build/`` at first use
+    (:func:`cuda_build.build`); returns the library path."""
+    return cuda_build.build(KERNEL_SOURCE)
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/irk_step.cu`` (the
+    package's, or one per team size in ``scripts/k3_team.py``)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.irk_step_f32, lib.irk_step_f64):
+        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_double, i32, i32, ptr, ptr, i64, i32, ptr]
+        fn.restype = i32
+    lib.irk_step_plan.argtypes = [i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i32)]
+    lib.irk_step_plan.restype = i32
+    lib.irk_step_team.restype = lib.irk_step_rows_per_block.restype = i32
+    lib.irk_step_error_string.argtypes = [i32]
+    lib.irk_step_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return bind_library(ctypes.CDLL(build_kernel()))
+
+
+def plan(stages: int, sensitivities: bool, dtype: torch.dtype) -> dict:
+    """K3's launch shape for one instantiation on the current card: lanes
+    per row (``team``), rows per block, shared memory per block (bytes) and
+    blocks resident per SM (the occupancy API)."""
+    lib = _library()
+    smem, per_sm = ctypes.c_longlong(), ctypes.c_int()
+    rc = lib.irk_step_plan(stages, int(sensitivities), int(dtype == torch.float64),
+                           ctypes.byref(smem), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError("irk_step_plan: " + lib.irk_step_error_string(rc).decode())
+    return dict(team=lib.irk_step_team(), rows_per_block=lib.irk_step_rows_per_block(),
+                smem_bytes=smem.value, blocks_per_sm=per_sm.value)
+
+
+def _check_k3_inputs(x, u, A, b, newton_iter, num_steps) -> None:
+    """Raise on what kernel K3 does not take: a dtype other than float32 or
+    float64, mixed dtypes or devices, shapes other than x (R, 5), u (R, 2),
+    A (s, s) and b (s,) with s in 1-4, a negative Newton iteration count or
+    no substep."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel K3 takes float32 or float64; x is {x.dtype}")
+    for name, t in (("u", u), ("A", A), ("b", b)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.ndim != 2 or x.shape[1] != K3_NX or tuple(u.shape) != (x.shape[0], K3_NU):
+        raise ValueError(f"kernel K3 is built for nx = {K3_NX} and nu = {K3_NU}; got "
+                         f"x {tuple(x.shape)} and u {tuple(u.shape)}")
+    s = A.shape[0]
+    if s not in K3_STAGES or tuple(A.shape) != (s, s) or tuple(b.shape) != (s,):
+        raise ValueError(f"kernel K3 is built for s in {K3_STAGES}; got A {tuple(A.shape)} "
+                         f"and b {tuple(b.shape)}")
+    if newton_iter < 0 or num_steps < 1:
+        raise ValueError(f"newton_iter = {newton_iter} and num_steps = {num_steps}: need "
+                         f">= 0 and >= 1")
+
+
+def irk_step_fused(x: torch.Tensor, u: torch.Tensor, A: torch.Tensor, b: torch.Tensor, h,
+                   newton_iter: int, num_steps: int, sensitivities: bool):
+    """Kernel K3: ``num_steps`` IRK substeps of size ``h`` of the unicycle
+    over rows x (R, 5), u (R, 2) on the card, with tableau A (s, s), b (s)
+    in the rows' dtype: Phi (R, 5), and with ``sensitivities`` also D =
+    dPhi/d(x, u) (R, 5, 7). One launch (a team of lanes per row, the
+    blocks in shared memory), counted in ``irk_step_fused.launches``. It
+    raises on a tensor off the card and on what the kernel does not take
+    (:func:`_check_k3_inputs`); there is no fallback."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel K3 runs on a CUDA device, not {x.device}")
+    _check_k3_inputs(x, u, A, b, newton_iter, num_steps)
+    x, u, A, b = (t.contiguous() for t in (x, u, A, b))
+    rows = x.shape[0]
+    phi = torch.empty_like(x)
+    D = torch.empty((rows, K3_NX, K3_NX + K3_NU), dtype=x.dtype, device=x.device) \
+        if sensitivities else None
+    if rows == 0:
+        return (phi, D) if sensitivities else phi
+    lib = _library()
+    launch = lib.irk_step_f32 if x.dtype == torch.float32 else lib.irk_step_f64
+    with torch.cuda.device(x.device):      # launch on the card that holds the data
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = launch(x.data_ptr(), u.data_ptr(), A.data_ptr(), b.data_ptr(), float(h),
+                    newton_iter, num_steps, phi.data_ptr(),
+                    D.data_ptr() if sensitivities else None, rows, A.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"irk_step launch failed (rows={rows}, s={A.shape[0]}, "
+                           f"newton_iter={newton_iter}, num_steps={num_steps}): "
+                           + lib.irk_step_error_string(rc).decode())
+    irk_step_fused.launches += 1
+    return (phi, D) if sensitivities else phi
+
+
+irk_step_fused.launches = 0
 
 
 def make_integrator(options) -> Callable:
@@ -384,8 +443,8 @@ def make_linearization(options) -> Callable:
     """Build lin(x, u, dt) -> (Phi, dPhi/dx, dPhi/du) over rows x (R, nx),
     u (R, nu) from :class:`doa_mpc_tpu_torch.config.SolverOptions`: rk4
     through ``vmap(jacfwd(...))`` with Phi as its aux output, IRK from one
-    :func:`irk_step` with its IFT sensitivities (one Newton solve of all
-    rows per iteration, one more for the sensitivities)."""
+    :func:`irk_step` with its IFT sensitivities (on the card one launch of
+    kernel K3 over all rows)."""
     from doa_mpc_tpu_torch.models.unicycle import dynamics
 
     if options.integrator == "irk":

@@ -1,9 +1,9 @@
-"""Operation counts of kernels K1 and K2, for their bounds.
+"""Operation counts of kernels K1, K2 and K3, for their bounds.
 
 ``csrc/op_count.cpp`` builds each kernel's body on the host with a number
-type that records one scenario's computation and counts the operations its
-outputs need, each distinct operation once (the file's header says exactly
-what counts). This module builds it with g++ and calls it; ``chip_smoke.py``
+type that records one scenario's (K3: one row's) computation and counts the
+operations its outputs need, each distinct operation once (the file's
+header says exactly what counts). This module builds it with g++ and calls it; ``chip_smoke.py``
 divides the counts by the card's f32 rate for each kernel's ``bound_ms``.
 """
 
@@ -45,6 +45,8 @@ class OpCounter:
         self._lib.count_ip_solve.restype = ctypes.c_longlong
         self._lib.count_riccati.argtypes = [ctypes.c_int]
         self._lib.count_riccati.restype = ctypes.c_longlong
+        self._lib.count_irk_step.argtypes = [ctypes.c_int] * 4
+        self._lib.count_irk_step.restype = ctypes.c_longlong
 
     def ip_solve(self, qp: OcpQp, iters: int, structure=None, tol: float | None = None,
                  stat_tol: float | None = None) -> int:
@@ -65,3 +67,14 @@ class OpCounter:
         """K2's operations on one LQR of horizon ``N``; its work does not
         depend on the data."""
         return self._lib.count_riccati(N)
+
+    def irk_step(self, rows: int, stages: int, newton_iter: int, num_steps: int,
+                 sensitivities: bool) -> int:
+        """K3's operations on a launch of ``rows`` rows: ``rows`` times one
+        row's (its work does not depend on the data), and the tableau's
+        s^2 products (-h) A, which the launch needs once."""
+        per_row = self._lib.count_irk_step(stages, newton_iter, num_steps, int(sensitivities))
+        if per_row < 0:
+            raise ValueError(f"K3 has no instantiation for s = {stages}, newton_iter = "
+                             f"{newton_iter}, num_steps = {num_steps}")
+        return rows * per_row + stages * stages

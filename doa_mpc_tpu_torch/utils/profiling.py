@@ -1,5 +1,6 @@
 """Performance accounting (``doa_mpc_tpu/utils/profiling.py``): the FLOP
-model of a tick, kernel K1's bytes, the card's bounds, and timing.
+model of a tick, the bytes of kernels K1 and K3, the card's bounds, and
+timing. The kernels' operations are counted by ``ops/op_count.py``.
 
 The bounds model one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data
 sheet: 3.35 TB/s of HBM and 67 TFLOP/s in float32 outside the tensor cores.
@@ -69,27 +70,13 @@ def fused_hbm_bytes(spec, batch: int, structure=None) -> int:
     return 4 * batch * (ins + outs)
 
 
-def irk_newton_bytes(rows: int, stages: int, k: int, itemsize: int, nx: int = 5) -> int:
-    """Bytes kernel K3 must move for one solve of ``rows`` rows: the stage
-    Jacobians (s nx^2 per row) and the right-hand sides (s nx k) read once,
-    the solution (s nx k) written once, and the tableau (s^2)."""
-    return itemsize * (rows * stages * nx * (nx + 2 * k) + stages * stages)
-
-
-def irk_newton_ops(stages: int, k: int, nx: int = 5) -> int:
-    """Operations kernel K3's code executes per row (``csrc/irk_newton.cu``;
-    a multiply-add counts two, a sign flip none): the Newton blocks
-    (s^2 + s^2 nx^2 + s nx), s Gauss-Jordan inverses (2 nx^2 (2 nx - 1)
-    each), s(s-1)/2 products L_ik (nx^2 (2 nx - 1)), sum_k (s-1-k)^2 Schur
-    updates (2 nx^3 each) and, per right-hand-side column, the forward and
-    backward block sweeps (2 nx^2 per off-diagonal block, twice) and the
-    s products with the inverses (nx (2 nx - 1))."""
-    s, n = stages, nx
-    blocks = s * s + s * s * n * n + s * n
-    lu = (s * 2 * n * n * (2 * n - 1) + s * (s - 1) // 2 * n * n * (2 * n - 1)
-          + sum((s - 1 - j) ** 2 for j in range(s)) * 2 * n ** 3)
-    solve = 2 * (s * (s - 1) // 2) * 2 * n * n + s * n * (2 * n - 1)
-    return blocks + lu + k * solve
+def irk_step_bytes(rows: int, stages: int, sensitivities: bool, itemsize: int,
+                   nx: int = 5, nu: int = 2) -> int:
+    """Bytes kernel K3 must move for one step of ``rows`` rows: x and u read
+    once, Phi (and with ``sensitivities`` D, nx (nx + nu) per row) written
+    once, and the tableau (s^2 + s)."""
+    per_row = nx + nu + nx + (nx * (nx + nu) if sensitivities else 0)
+    return itemsize * (rows * per_row + stages * stages + stages)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:

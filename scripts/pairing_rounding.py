@@ -12,13 +12,14 @@ bit and the largest difference:
 
     python scripts/pairing_rounding.py --leg results/parity_r5/v1_nostatus4 --only 220136
 
-With an IRK leg it then splits the IRK substep (``ops/integrators.py``,
-``_irk_substep``) at that tick into its ops, at both of its call
-sites (the plant step over the B rows, the linearization over the B*N
-stage points), and prints per op the rows equal and the largest
-difference. Each op gets the same inputs in the cell's rows at both batch
-sizes (the alone run's), so a row that differs names the op that rounds
-it differently, not one that inherited a difference.
+With an IRK leg it then runs the IRK step at that tick (on the card one
+launch of kernel K3, ``ops/integrators.py``, ``irk_step_fused``; on the CPU
+its plain version) at both of its call sites (the plant step over the B
+rows, the linearization over the B*N stage points, with D), and prints the
+rows equal and the largest difference. The step gets the same inputs in
+the cell's rows at both batch sizes (the alone run's), so a row that
+differs shows that the step rounds it differently, not that it inherited a
+difference.
 
 ``--ranks 2`` runs the campaign cell of ``chip_smoke.py`` phase 14
 (TF 2.0, N 20, M 5, 6 IP iterations, ``fused``, f32, RANDOM, 100 seeds x
@@ -27,11 +28,10 @@ unsharded and as the ``experiment --distributed`` command on that many gloo
 ranks on the card, and prints the rows the two give equal.
 
 It runs on a card (``--device cuda``, the default). Every op of the tick
-computes a row from that row alone (the IRK Newton solve is kernel K3,
-one thread per row, and the substep's sums are elementwise in a fixed
-order), so on the card as on the CPU the state stays equal in every row
-and IRK rows do not depend on the batch; the script finds the op that
-breaks that, should one come to.
+computes a row from that row alone (the IRK step is kernel K3, whose
+lanes split a row's outputs, never a sum), so on the card as on the CPU
+the state stays equal in every row and IRK rows do not depend on the
+batch; the script finds the op that breaks that, should one come to.
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, resolve_device  # noqa: E402
-from doa_mpc_tpu_torch.models.unicycle import dynamics  # noqa: E402
 from doa_mpc_tpu_torch.ops import integrators  # noqa: E402
 from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused  # noqa: E402
 from doa_mpc_tpu_torch.ops.ocp_qp import OcpQp  # noqa: E402
@@ -64,71 +63,24 @@ from doa_mpc_tpu_torch.sim.obstacles import (  # noqa: E402
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller  # noqa: E402
 
 
-def substep_ops(opts, h, dtype, dev):
-    """The ops of one IRK substep (``ops/integrators.py``, ``_irk_substep``
-    with its sensitivities) in order, as (name, fn, inputs, outputs) over a
-    dict of named tensors whose leading dimension is the row."""
-    A, b = integrators._tableau_tensors(opts.irk_tableau, opts.irk_stages, dtype, dev)
-    s_, nx = A.shape[0], 5
-
-    def k0(x, u):
-        f0 = dynamics(x, u)
-        return f0.unsqueeze(-2).expand(f0.shape[:-1] + (s_, nx))
-
-    def f_stages(Z, u):
-        return dynamics(Z, u.unsqueeze(-2).expand(Z.shape[:-1] + u.shape[-1:]))
-
-    ops = [("f(x, u)", k0, ("x", "u"), ("K",))]
-    for it in range(1, opts.irk_newton_iter + 1):
-        ops += [
-            (f"stage states {it}", lambda x, K: integrators._stage_states(x, K, A, h),
-             ("x", "K"), ("Z",)),
-            (f"f at the stages {it}", f_stages, ("Z", "u"), ("F",)),
-            (f"stage Jacobians {it}",
-             lambda Z, u: integrators._stage_jacobians(dynamics, Z, u, (0,))[0],
-             ("Z", "u"), ("Jf",)),
-            (f"K3 Newton solve {it}",
-             lambda Jf, K, F: integrators.irk_newton_solve(Jf, A, h, (K - F).unsqueeze(-1)),
-             ("Jf", "K", "F"), ("dK",)),
-            (f"K update {it}", lambda K, dK: K - dK.squeeze(-1), ("K", "dK"), ("K",))]
-    ops += [
-        ("phi (b-weighted sum)",
-         lambda x, K: x + h * integrators._ordered_sum(b[:, None] * K, -2), ("x", "K"),
-         ("phi",)),
-        ("stage states (final)", lambda x, K: integrators._stage_states(x, K, A, h),
-         ("x", "K"), ("Z",)),
-        ("stage Jacobians (final)",
-         lambda Z, u: torch.cat(integrators._stage_jacobians(dynamics, Z, u, (0, 1)), -1),
-         ("Z", "u"), ("J",)),
-        ("K3 sensitivity solve",
-         lambda J: integrators.irk_newton_solve(J[..., :nx].contiguous(), A, h, J), ("J",),
-         ("dK",)),
-        ("D (b-weighted sum)",
-         lambda dK: torch.eye(nx, dK.shape[-1], dtype=dtype, device=dev)
-         + h * integrators._ordered_sum(b[:, None, None] * dK, -3), ("dK",), ("D",))]
-    return ops
-
-
-def split_substep(opts, h, alone, paired, n):
-    """Run :func:`substep_ops` on the cell's rows alone (``alone``: dict with
-    x, u of ``n`` rows) and behind the other rows (``paired``: the same keys,
-    the cell's rows last). Before each op the cell's rows of its inputs in
-    the paired run are set to the alone run's. Returns (name, rows equal,
-    max|diff|) per op."""
-    x = alone["x"]
-    out = []
-    for name, fn, ins, outs in substep_ops(opts, h, x.dtype, x.device):
-        for k in ins:
-            paired[k] = paired[k].clone()
-            paired[k][-n:] = alone[k]
-        ra, rp = fn(*(alone[k] for k in ins)), fn(*(paired[k] for k in ins))
-        ra, rp = (ra, rp) if len(outs) > 1 else ((ra,), (rp,))
-        alone.update(zip(outs, ra))
-        paired.update(zip(outs, rp))
-        a = torch.cat([v.reshape(n, -1).to(torch.float64) for v in ra], 1)
-        p = torch.cat([v[-n:].reshape(n, -1).to(torch.float64) for v in rp], 1)
-        out.append((name, int((a == p).all(1).sum()), float((a - p).abs().max())))
-    return out
+def step_alone_and_paired(opts, h, alone, paired, sensitivities):
+    """The IRK step of one call site as the tick runs it (kernel K3 on the
+    card, ``integrators.irk_step_fused``; its plain version on the CPU) on
+    the cell's rows alone (``alone``: x, u of n rows) and behind the other
+    rows (``paired``: x, u with the cell's rows last, which are set to the
+    alone run's first). Returns the rows whose Phi (and D) are equal bit for
+    bit, and the largest difference."""
+    n = alone[0].shape[0]
+    paired = [torch.cat([p[:-n], a]) for p, a in zip(paired, alone)]
+    x = alone[0]
+    A, b = integrators._tableau_tensors(opts.irk_tableau, opts.irk_stages, x.dtype, x.device)
+    step = integrators.irk_step_fused if x.device.type == "cuda" else integrators.irk_step_ref
+    ra, rp = (step(*xu, A, b, h, opts.irk_newton_iter, 1, sensitivities)
+              for xu in (alone, paired))
+    ra, rp = (ra, rp) if sensitivities else ((ra,), (rp,))
+    a = torch.cat([v.reshape(n, -1).to(torch.float64) for v in ra], 1)
+    p = torch.cat([v[-n:].reshape(n, -1).to(torch.float64) for v in rp], 1)
+    return int((a == p).all(1).sum()), float((a - p).abs().max())
 
 
 def pairing_rounding(s, cell, dev, n_runs=100, max_ticks=60):
@@ -190,16 +142,16 @@ def pairing_rounding(s, cell, dev, n_runs=100, max_ticks=60):
         return line
     h = spec.tf / spec.n_solv
     N = spec.n_solv
-    sites = {"plant step": ({b: st[b].x0 for b in sizes}, u0, n_runs),
+    sites = {"plant step": ({b: st[b].x0 for b in sizes}, u0, n_runs, False),
              "linearization": ({b: st[b].rti.x_traj[:, :-1].reshape(b * N, -1) for b in sizes},
                                {b: st[b].rti.u_traj.reshape(b * N, -1) for b in sizes},
-                               n_runs * N)}
-    for site, (xs, us, rows) in sites.items():
-        ops = split_substep(opts, h, dict(x=xs[n_runs], u=us[n_runs]),
-                            dict(x=xs[2 * n_runs], u=us[2 * n_runs]), rows)
-        line += (f"\nIRK substep ops at tick {t + 1}, {site} ({rows} rows alone, {2 * rows} "
-                 "paired; each op on equal inputs), rows equal (max|diff|): " + "; ".join(
-                     f"{name} {n}/{rows} ({d:.2e})" for name, n, d in ops))
+                               n_runs * N, True)}
+    for site, (xs, us, rows, sens) in sites.items():
+        n, d = step_alone_and_paired(opts, h, (xs[n_runs], us[n_runs]),
+                                     (xs[2 * n_runs], us[2 * n_runs]), sens)
+        line += (f"\nIRK step (K3{' with D' if sens else ''}) at tick {t + 1}, {site} ({rows} "
+                 f"rows alone, {2 * rows} paired; on equal inputs): rows equal {n}/{rows} "
+                 f"(max|diff| {d:.2e})")
     return line
 
 

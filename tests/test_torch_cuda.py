@@ -373,24 +373,25 @@ def test_kernel_sweep_budgets_pass_f64_arbitration(cuda, structure, iters):
 
 def test_irk_fused_tick_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     """With the default integrator (IRK) the fused main path launches K1
-    once per tick and K3 seven times, and never hands a CUDA tensor to
-    either plain version."""
+    once per tick and K3 twice, and never hands a CUDA tensor to a plain
+    version."""
     def plain_on_a_card(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=50)
     opts = SolverOptions(qp_iter=50, compat_pred_bug=True)
     assert opts.integrator == "irk"
-    before, k3 = solve_ocp_qp_fused.launches, integrators.irk_newton_solve.launches
+    before, k3 = solve_ocp_qp_fused.launches, integrators.irk_step_fused.launches
     with monkeypatch.context() as mp:
         mp.setattr(ip_fused, "solve_ocp_qp_fused_ref", plain_on_a_card)
-        mp.setattr(integrators, "irk_newton_solve_ref", plain_on_a_card)
+        for name in ("irk_step_ref", "_irk_substep", "irk_newton_solve_ref"):
+            mp.setattr(integrators, name, plain_on_a_card)
         gpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=12,
                                  compat_rng=True, device=cuda)
     assert solve_ocp_qp_fused.launches == before + 12
-    # K3: 3 Newton solves + 1 sensitivity solve in the linearization, 3 in
-    # the plant step, per tick
-    assert integrators.irk_newton_solve.launches == k3 + 7 * 12
+    # K3: the linearization's step (with the sensitivities) and the plant
+    # step, per tick
+    assert integrators.irk_step_fused.launches == k3 + 2 * 12
     cpu = run_scenario_batch(spec, opts, "RANDOM", n_runs=8, max_iter=12,
                              compat_rng=True, device="cpu")
     assert np.isfinite(gpu).all()
@@ -437,9 +438,9 @@ def test_f64_riccati_irk_tick_on_cuda_launches_k2_f64(cuda, monkeypatch):
 
 
 def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
-    """The f32 Newton iterations and K3's block-LU solves on the card (TF32
-    off) land within 1e-5 of the float64 step on the CPU, and so do the
-    sensitivities of the controller's linearization."""
+    """The f32 step through K3 on the card (TF32 off) lands within 1e-5 of
+    the float64 step on the CPU, and so do the sensitivities of the
+    controller's linearization."""
     from doa_mpc_tpu_torch.models.unicycle import dynamics
     from doa_mpc_tpu_torch.ops.integrators import irk_step
     from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
@@ -463,78 +464,115 @@ def test_irk_step_on_cuda_f32_within_1e5_of_cpu_f64(cuda):
         np.testing.assert_allclose(g.double().cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)
 
 
-def _k3_inputs(dev, dtype, rows, k, seed=0):
-    """Stage Jacobians of the unicycle's size at states like the
-    controller's (f(Z) at N(0, s) states through ``_stage_jacobians``), the
-    4-stage Gauss-Legendre tableau and right-hand sides N(0, 1)."""
-    from doa_mpc_tpu_torch.models.unicycle import dynamics
-
+def _k3_inputs(dev, dtype, rows, seed=0, kind="gauss_legendre", stages=4):
+    """States and controls like the controller's (N(0, s) per coordinate),
+    and a tableau, as K3 takes them."""
     rng = np.random.default_rng(seed)
-    Z = torch.tensor(rng.standard_normal((rows, 4, 5)) * np.array([3, 3, 1, 2, 1]),
-                     dtype=dtype, device=dev)
+    x = torch.tensor(rng.standard_normal((rows, 5)) * np.array([3, 3, 1, 2, 1]), dtype=dtype,
+                     device=dev)
     u = torch.tensor(rng.standard_normal((rows, 2)), dtype=dtype, device=dev)
-    (Jf,) = integrators._stage_jacobians(dynamics, Z, u, (0,))
-    A = integrators._tableau_tensors("gauss_legendre", 4, dtype, dev)[0]
-    rhs = torch.tensor(rng.standard_normal((rows, 4, 5, k)), dtype=dtype, device=dev)
-    return Jf, A, rhs
+    A, b = integrators._tableau_tensors(kind, stages, dtype, dev)
+    return x, u, A, b
 
 
-@pytest.mark.parametrize("k", [1, 7])
+@pytest.mark.parametrize("sens", [False, True], ids=["phi", "sens"])
 @pytest.mark.parametrize("rows", [1, 37, 4096, 81920])
-def test_k3_matches_plain(cuda, rows, k):
-    """K3 against its plain version on the card: f64 to 1e-12; f32 no
+def test_k3_matches_plain(cuda, rows, sens):
+    """K3 against its plain version (``irk_step_ref``) on the card, 4-stage
+    Gauss-Legendre, 3 Newton iterations: f64 to 1e-12 relative; f32 no
     further from the f64 plain output than 2x the plain f32 version (and
     1e-6)."""
-    Jf, A, rhs = _k3_inputs(cuda, torch.float64, rows, k)
-    before = integrators.irk_newton_solve.launches
-    got = integrators.irk_newton_solve(Jf, A, 0.1, rhs)
-    want = integrators.irk_newton_solve_ref(Jf, A, 0.1, rhs)
+    x, u, A, b = _k3_inputs(cuda, torch.float64, rows)
+    before = integrators.irk_step_fused.launches
+    got = integrators.irk_step_fused(x, u, A, b, 0.1, 3, 1, sens)
+    want = integrators.irk_step_ref(x, u, A, b, 0.1, 3, 1, sens)
     torch.cuda.synchronize()
-    assert integrators.irk_newton_solve.launches == before + 1
-    assert got.shape == rhs.shape and got.dtype == torch.float64
-    assert float((got - want).abs().max()) <= 1e-12
-    f32 = [t.float() for t in (Jf, A, rhs)]
-    e_k = float((integrators.irk_newton_solve(f32[0], f32[1], 0.1, f32[2]).double()
-                 - want).abs().max())
-    e_p = float((integrators.irk_newton_solve_ref(f32[0], f32[1], 0.1, f32[2]).double()
-                 - want).abs().max())
-    assert np.isfinite(e_k) and e_k <= max(2 * e_p, 1e-6), (e_k, e_p)
+    assert integrators.irk_step_fused.launches == before + 1
+    got, want = (got, want) if sens else ((got,), (want,))
+    x32, u32, A32, b32 = (t.float() for t in (x, u, A, b))
+    got32 = integrators.irk_step_fused(x32, u32, A32, b32, 0.1, 3, 1, sens)
+    plain32 = integrators.irk_step_ref(x32, u32, A32, b32, 0.1, 3, 1, sens)
+    got32, plain32 = (got32, plain32) if sens else ((got32,), (plain32,))
+    for g, w, g32, p32 in zip(got, want, got32, plain32):
+        assert g.shape == w.shape and g.dtype == torch.float64 and g32.dtype == torch.float32
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) / scale <= 1e-12
+        e_k = float((g32.double() - w).abs().max())
+        e_p = float((p32.double() - w).abs().max())
+        assert np.isfinite(e_k) and e_k <= max(2 * e_p, 1e-6), (e_k, e_p)
+
+
+@pytest.mark.parametrize("kind,stages,newton_iter,num_steps",
+                         [("gauss_legendre", 1, 1, 2), ("gauss_legendre", 2, 3, 1),
+                          ("gauss_legendre", 3, 2, 2), ("radau_iia", 3, 3, 2)])
+def test_k3_other_instantiations_match_plain(cuda, kind, stages, newton_iter, num_steps):
+    """The other stage counts, Newton iteration counts and substeps (the
+    ``sim`` command's Radau IIA with 3 stages among them), f64 with the
+    sensitivities, to 1e-12 relative."""
+    x, u, A, b = _k3_inputs(cuda, torch.float64, 300, seed=2, kind=kind, stages=stages)
+    h = 0.1 / num_steps
+    got = integrators.irk_step_fused(x, u, A, b, h, newton_iter, num_steps, True)
+    want = integrators.irk_step_ref(x, u, A, b, h, newton_iter, num_steps, True)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) <= 1e-12
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k3_rows_do_not_depend_on_the_batch(cuda, dtype):
     """The first rows give the same bits alone as inside a batch of 81,920,
-    and so do rows at the end of the batch."""
-    Jf, A, rhs = _k3_inputs(cuda, dtype, 81920, 7, seed=1)
-    whole = integrators.irk_newton_solve(Jf, A, 0.1, rhs)
-    for sl in (slice(0, 1), slice(0, 100), slice(81900, 81920)):
-        part = integrators.irk_newton_solve(Jf[sl].contiguous(), A, 0.1, rhs[sl].contiguous())
-        assert torch.equal(part, whole[sl])
-    newton = integrators.irk_newton_solve(Jf, A, 0.1, rhs[..., :1].contiguous())
-    part = integrators.irk_newton_solve(Jf[:50].contiguous(), A, 0.1,
-                                        rhs[:50, ..., :1].contiguous())
-    assert torch.equal(part, newton[:50])
+    and so do rows at the end of the batch, with and without D."""
+    x, u, A, b = _k3_inputs(cuda, dtype, 81920, seed=1)
+    for sens in (True, False):
+        whole = integrators.irk_step_fused(x, u, A, b, 0.1, 3, 1, sens)
+        whole = whole if sens else (whole,)
+        for sl in (slice(0, 1), slice(0, 100), slice(81900, 81920)):
+            part = integrators.irk_step_fused(x[sl].clone(), u[sl].clone(), A, b, 0.1, 3, 1,
+                                              sens)
+            for p, w in zip(part if sens else (part,), whole):
+                assert torch.equal(p, w[sl])
 
 
 def test_k3_rejects_what_it_does_not_take(cuda):
-    """Wrong shapes, dtypes, devices or strides raise before a launch; there
-    is no fallback to the plain version."""
-    Jf, A, rhs = _k3_inputs(cuda, torch.float32, 8, 7)
-    solve = integrators.irk_newton_solve
-    before = solve.launches
+    """Another dynamics, dtype, width or stage count, or mixed devices
+    raise in ``irk_step`` and in the kernel's wrapper before a launch;
+    there is no fallback to the plain version."""
+    from doa_mpc_tpu_torch.models.unicycle import dynamics
+    from doa_mpc_tpu_torch.ops.integrators import irk_step
+
+    x, u, A, b = _k3_inputs(cuda, torch.float32, 8)
+    before = integrators.irk_step_fused.launches
+    with pytest.raises(ValueError, match="unicycle.dynamics only"):
+        irk_step(lambda s_, c: dynamics(s_, c), x, u, 0.1)
     with pytest.raises(TypeError, match="float32 or float64"):
-        solve(Jf.half(), A.half(), 0.1, rhs.half())
-    with pytest.raises(TypeError, match="rhs is"):
-        solve(Jf, A, 0.1, rhs.double())
-    with pytest.raises(ValueError, match="k in"):
-        solve(Jf, A, 0.1, rhs[..., :2].contiguous())
-    with pytest.raises(ValueError, match="A has shape"):
-        solve(Jf, A[:3, :3].contiguous(), 0.1, rhs)
-    with pytest.raises(ValueError, match="is on"):
-        solve(Jf, A.cpu(), 0.1, rhs)
-    with pytest.raises(ValueError, match="not contiguous"):
-        solve(Jf, A, 0.1, rhs.transpose(0, 1).contiguous().transpose(0, 1))
-    assert solve.launches == before
+        irk_step(dynamics, x.half(), u.half(), 0.1)
+    with pytest.raises(TypeError, match="u is"):
+        irk_step(dynamics, x, u.double(), 0.1)
+    with pytest.raises(ValueError, match="u is on"):
+        irk_step(dynamics, x, u.cpu(), 0.1)
+    with pytest.raises(ValueError, match="nx = 5 and nu = 2"):
+        irk_step(dynamics, torch.zeros(8, 6, device=cuda), u, 0.1)
+    with pytest.raises(ValueError, match="s in"):
+        irk_step(dynamics, x, u, 0.1, stages=5)
+    with pytest.raises(ValueError, match="A is on"):
+        integrators.irk_step_fused(x, u, A.cpu(), b, 0.1, 3, 1, False)
+    with pytest.raises(ValueError, match="need"):
+        integrators.irk_step_fused(x, u, A, b, 0.1, 3, 0, False)
+    assert integrators.irk_step_fused.launches == before
+
+
+def test_k3_takes_the_sim_commands_unbatched_state(cuda):
+    """The ``sim`` command's x (5,) and u (2,) with no leading dimension:
+    one launch, the CPU's step (f32, 3-stage Radau IIA)."""
+    from doa_mpc_tpu_torch.models.unicycle import dynamics
+    from doa_mpc_tpu_torch.ops.integrators import irk_step
+
+    x = torch.tensor([0.0, 0.0, np.pi / 4, 0.5, 0.1])
+    u = torch.tensor([1.0, 0.5])
+    before = integrators.irk_step_fused.launches
+    got = irk_step(dynamics, x.to(cuda), u.to(cuda), 0.1, stages=3, tableau="radau_iia")
+    assert integrators.irk_step_fused.launches == before + 1 and got.shape == (5,)
+    want = irk_step(dynamics, x, u, 0.1, stages=3, tableau="radau_iia")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-6)
 
 
 def test_irk_paired_rows_equal_rows_alone_on_cuda(cuda):

@@ -6,7 +6,8 @@ in f64, 1e-5 in f32, against the JAX functions of the same names); the step
 ``jax.jacfwd``; 5.6e-17 measured; 1e-6 against finite differences) and the
 controller's linearization (1e-13 against JAX's ``vmap(jacfwd(...))``); the
 native C++ Radau IIA step as a third oracle; f32 against f64; kernel K3's
-source compiled with g++ against its plain version; the Newton matrix
+source (the whole step) compiled with g++ against the plain step and
+JAX's, and its input checks; the Newton matrix
 factored once per Newton iteration over all rows (plus once for the
 sensitivities of the linearization); and the sharded IRK rollout."""
 
@@ -33,7 +34,7 @@ from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
 from doa_mpc_tpu_torch.models.unicycle import dynamics
 from doa_mpc_tpu_torch.ops import integrators
 from doa_mpc_tpu_torch.ops.integrators import (
-    butcher_tableau, irk_newton_solve, irk_newton_solve_ref, irk_step, make_integrator)
+    butcher_tableau, irk_newton_solve_ref, irk_step, make_integrator)
 from doa_mpc_tpu_torch.parallel.mesh import make_data_mesh
 from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
@@ -268,16 +269,14 @@ def test_newton_blocks_and_block_lu_match_jax(dtype, atol, kind, stages):
 
 @pytest.mark.parametrize("k", [1, 7])
 def test_irk_newton_solve_solves_the_dense_system(k):
-    """K3's plain version against a dense solve of M = I - h (A (x) Jf) in
-    f64, and each column as JAX's ``_block_solve`` solves one vector; on CPU
-    tensors the wrapper is the plain version."""
+    """The plain block-LU solve against a dense solve of M = I - h (A (x) Jf)
+    in f64, and each column as JAX's ``_block_solve`` solves one vector."""
     A = butcher_tableau("gauss_legendre", 4)[0]
     Jf = _jf(11)
     rhs = np.random.default_rng(12).standard_normal((6, 4, 5, k))
     At, Jt, rt = torch.as_tensor(A), torch.as_tensor(Jf), torch.as_tensor(rhs)
     got = irk_newton_solve_ref(Jt, At, DT, rt)
     assert got.shape == rhs.shape
-    np.testing.assert_array_equal(irk_newton_solve(Jt, At, DT, rt).numpy(), got.numpy())
     M = np.einsum("ij,nirc->nircj", -DT * A, Jf)           # (n, s, nx, nx, s)
     dense = np.eye(20) + np.transpose(M, (0, 1, 2, 4, 3)).reshape(6, 20, 20)
     np.testing.assert_allclose(got.reshape(6, 20, k).numpy(),
@@ -289,40 +288,68 @@ def test_irk_newton_solve_solves_the_dense_system(k):
 
 
 def test_k3_input_checks_raise():
-    """What kernel K3 does not take raises (checked before a launch)."""
-    A = torch.as_tensor(butcher_tableau("gauss_legendre", 4)[0])
-    Jf, rhs = torch.zeros(3, 4, 5, 5, dtype=torch.float64), torch.zeros(3, 4, 5, 7,
-                                                                         dtype=torch.float64)
-    check = integrators._check_cuda_inputs
-    check(Jf, A, rhs)
+    """What kernel K3 does not take raises before a launch: another dtype,
+    width or stage count, mixed dtypes or devices, a negative Newton
+    iteration count or no substep; a tensor off the card raises in the
+    wrapper, and on neither the CPU nor a card in ``irk_step`` (no
+    fallback)."""
+    A, b = (torch.as_tensor(a) for a in butcher_tableau("gauss_legendre", 4)[:2])
+    x, u = torch.zeros(3, 5, dtype=torch.float64), torch.zeros(3, 2, dtype=torch.float64)
+
+    def check(x=x, u=u, A=A, b=b, newton_iter=3, num_steps=1):
+        integrators._check_k3_inputs(x, u, A, b, newton_iter, num_steps)
+
+    check()
     with pytest.raises(TypeError, match="float32 or float64"):
-        check(Jf.half(), A.half(), rhs.half())
-    with pytest.raises(TypeError, match="rhs is"):
-        check(Jf, A, rhs.float())
-    with pytest.raises(ValueError, match="nx = 5"):
-        check(torch.zeros(3, 4, 6, 6, dtype=torch.float64), A, rhs)
+        check(x.half(), u.half(), A.half(), b.half())
+    with pytest.raises(TypeError, match="u is"):
+        check(u=u.float())
+    with pytest.raises(ValueError, match="b is on"):
+        check(b=b.to("meta"))
+    with pytest.raises(ValueError, match="nx = 5 and nu = 2"):
+        check(x=torch.zeros(3, 6, dtype=torch.float64))
+    with pytest.raises(ValueError, match="nx = 5 and nu = 2"):
+        check(u=torch.zeros(4, 2, dtype=torch.float64))
     with pytest.raises(ValueError, match="s in"):
-        check(torch.zeros(3, 5, 5, 5, dtype=torch.float64), torch.zeros(5, 5, dtype=torch.float64),
-              torch.zeros(3, 5, 5, 7, dtype=torch.float64))
-    with pytest.raises(ValueError, match="k in"):
-        check(Jf, A, torch.zeros(3, 4, 5, 2, dtype=torch.float64))
-    with pytest.raises(ValueError, match="A has shape"):
-        check(Jf, A[:3, :3], rhs)
-    with pytest.raises(ValueError, match="not contiguous"):
-        check(Jf, A, torch.zeros(3, 4, 7, 5, dtype=torch.float64).transpose(-1, -2))
+        check(A=torch.zeros(5, 5, dtype=torch.float64), b=torch.zeros(5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="s in"):
+        check(b=b[:3])
+    with pytest.raises(ValueError, match="need"):
+        check(newton_iter=-1)
+    with pytest.raises(ValueError, match="need"):
+        check(num_steps=0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        integrators.irk_step_fused(x, u, A, b, DT, 3, 1, False)
     with pytest.raises(ValueError, match="unsupported device"):
-        irk_newton_solve(Jf.to("meta"), A.to("meta"), DT, rhs.to("meta"))
+        irk_step(dynamics, x.to("meta"), u.to("meta"), DT)
+
+
+def test_irk_step_on_cpu_tensors_never_reaches_the_kernel(monkeypatch):
+    """CPU tensors run the plain step, for any dynamics: the kernel's
+    wrapper is not called."""
+    def kernel(*a, **k):
+        raise AssertionError("a CPU tensor reached kernel K3")
+
+    monkeypatch.setattr(integrators, "irk_step_fused", kernel)
+    x, u = (torch.as_tensor(a) for a in _states(15, nb=4))
+    phi, D = irk_step(dynamics, x, u, DT, sensitivities=True)
+    assert phi.shape == (4, 5) and D.shape == (4, 5, 7)
+    irk_step(lambda s, c: 2.0 * dynamics(s, c), x, u, DT)
 
 
 _HARNESS = """
-#include "irk_newton.cu"
-extern "C" int host_irk_newton_f64(const double* jf, const double* a, double h,
-                                   const double* rhs, double* out, long long rows, int s, int k) {
-  return irkn::host_solve<double>(s, k, jf, a, h, rhs, out, rows);
+#include "irk_step.cu"
+extern "C" int host_irk_step_f64(const double* x, const double* u, const double* A,
+                                 const double* b, double h, int newton_iter, int num_steps,
+                                 double* phi, double* D, long long rows, int s, int reverse) {
+  return irks::host_step<double>(s, x, u, A, b, h, newton_iter, num_steps, phi, D, rows,
+                                 reverse != 0);
 }
-extern "C" int host_irk_newton_f32(const float* jf, const float* a, double h,
-                                   const float* rhs, float* out, long long rows, int s, int k) {
-  return irkn::host_solve<float>(s, k, jf, a, h, rhs, out, rows);
+extern "C" int host_irk_step_f32(const float* x, const float* u, const float* A,
+                                 const float* b, double h, int newton_iter, int num_steps,
+                                 float* phi, float* D, long long rows, int s, int reverse) {
+  return irks::host_step<float>(s, x, u, A, b, h, newton_iter, num_steps, phi, D, rows,
+                                reverse != 0);
 }
 """
 
@@ -332,39 +359,117 @@ def host_k3(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
-    d = tmp_path_factory.mktemp("host_irk_newton")
+    d = tmp_path_factory.mktemp("host_irk_step")
     src = d / "harness.cpp"
     src.write_text(_HARNESS)
     lib = d / "libhost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
                     "-I", os.path.dirname(integrators.KERNEL_SOURCE),
-                    "-o", str(lib), str(src)], check=True, timeout=120)
+                    "-o", str(lib), str(src)], check=True, timeout=180)
     so = ctypes.CDLL(str(lib))
-    for fn in (so.host_irk_newton_f64, so.host_irk_newton_f32):
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_double] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+    for fn in (so.host_irk_step_f64, so.host_irk_step_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_double, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
         fn.restype = ctypes.c_int
     return so
 
 
+def _host_step(so, x, u, kind, stages, newton_iter, num_steps, sensitivities, reverse=False):
+    """Kernel K3's body built by g++ (``irks::host_step``: one lane per row,
+    one row after another) on CPU tensors x (R, 5), u (R, 2): Phi, and D
+    with ``sensitivities``; ``reverse`` walks each phase's items backwards."""
+    A, b = integrators._tableau_tensors(kind, stages, x.dtype, x.device)
+    phi = torch.full_like(x, float("nan"))
+    D = torch.full((x.shape[0], 5, 7), float("nan"), dtype=x.dtype)
+    fn = so.host_irk_step_f64 if x.dtype == torch.float64 else so.host_irk_step_f32
+    rc = fn(x.data_ptr(), u.data_ptr(), A.data_ptr(), b.data_ptr(), DT / num_steps, newton_iter,
+            num_steps, phi.data_ptr(), D.data_ptr() if sensitivities else None, x.shape[0],
+            stages, int(reverse))
+    assert rc == 0
+    return (phi, D) if sensitivities else phi
+
+
+ALL_SCHEMES = pytest.mark.parametrize(
+    "kind,stages", [("gauss_legendre", s) for s in (1, 2, 3, 4)]
+    + [("radau_iia", s) for s in (1, 2, 3)])
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-13), (torch.float32, 2e-5)],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("k", [1, 7])
-@pytest.mark.parametrize("stages", [1, 2, 3, 4])
-def test_kernel_source_on_host_matches_plain(host_k3, stages, k, dtype, atol):
-    """K3's body (``csrc/irk_newton.cu``), built by g++ as one row after
-    another, against its plain version: 1e-13 in f64; in f32 2e-5, the
-    rounding of a different summation order in the 5x5 products."""
-    A = torch.as_tensor(butcher_tableau("gauss_legendre", stages)[0], dtype=dtype)
-    Jf = torch.as_tensor(_jf(13, nb=9, s=stages), dtype=dtype)
-    rhs = torch.as_tensor(np.random.default_rng(14).standard_normal((9, stages, 5, k)),
-                          dtype=dtype)
-    out = torch.full_like(rhs, float("nan"))
-    fn = host_k3.host_irk_newton_f64 if dtype == torch.float64 else host_k3.host_irk_newton_f32
-    assert fn(Jf.data_ptr(), A.data_ptr(), DT, rhs.data_ptr(), out.data_ptr(), 9, stages, k) == 0
-    want = irk_newton_solve_ref(Jf, A, DT, rhs)
-    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=atol)
-    assert fn(Jf.data_ptr(), A.data_ptr(), DT, rhs.data_ptr(), out.data_ptr(), 9, stages, 2) == -1
+@pytest.mark.parametrize("sensitivities", [False, True], ids=["phi", "sens"])
+@pytest.mark.parametrize("num_steps", [1, 2])
+@pytest.mark.parametrize("newton_iter", [1, 3])
+@ALL_SCHEMES
+def test_kernel_source_on_host_matches_plain(host_k3, kind, stages, newton_iter, num_steps,
+                                             sensitivities, dtype, atol):
+    """K3's body (``csrc/irk_step.cu``), built by g++, against the plain
+    ``irk_step`` (Phi, and D with the sensitivities): 1e-13 in f64 (0
+    measured: the same operations in the same order); in f32 2e-5, the
+    rounding of the closed-form Jacobians' and the products' order
+    (1.5e-8 measured). Walking each phase's items backwards gives the same
+    bits: no item reads what another item of its phase writes, which is
+    what lets the card's lanes share a phase."""
+    x, u = (torch.as_tensor(a, dtype=dtype) for a in _states(16, nb=9))
+    got = _host_step(host_k3, x, u, kind, stages, newton_iter, num_steps, sensitivities)
+    back = _host_step(host_k3, x, u, kind, stages, newton_iter, num_steps, sensitivities,
+                      reverse=True)
+    want = irk_step(dynamics, x, u, DT, stages=stages, newton_iter=newton_iter, tableau=kind,
+                    num_steps=num_steps, sensitivities=sensitivities)
+    got, back, want = ((t,) if not sensitivities else t for t in (got, back, want))
+    for g, bk, w in zip(got, back, want):
+        assert torch.equal(g, bk)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=atol)
+
+
+@ALL_SCHEMES
+def test_kernel_source_on_host_matches_jax_f64(host_k3, kind, stages):
+    """K3's body in f64 against the JAX package's ``irk_step`` (Phi) and
+    ``jax.jacfwd`` of it (D, through its ``custom_jvp`` rule), over two
+    substeps (D chained): 1e-12."""
+    x, u = _states(17, nb=6)
+
+    def j_step(xx, uu):
+        return j_irk(j_dynamics, xx, uu, DT, stages=stages, tableau=kind, num_steps=2)
+
+    def j_phi_and_jac(xx, uu):
+        return j_step(xx, uu), jax.jacfwd(j_step, argnums=(0, 1))(xx, uu)
+
+    want_phi, (want_A, want_B) = jax.jit(jax.vmap(j_phi_and_jac))(jnp.asarray(x), jnp.asarray(u))
+    phi, D = _host_step(host_k3, torch.as_tensor(x), torch.as_tensor(u), kind, stages, 3, 2,
+                        True)
+    np.testing.assert_allclose(phi.numpy(), np.asarray(want_phi), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(D[..., :5].numpy(), np.asarray(want_A), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(D[..., 5:].numpy(), np.asarray(want_B), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_source_on_host_rows_do_not_depend_on_the_batch(host_k3, dtype):
+    """A row gives the same bits alone as inside a batch of 37 (the plant's
+    and the linearization's shapes of call: Phi alone, and Phi with D)."""
+    x, u = (torch.as_tensor(a, dtype=dtype) for a in _states(18, nb=37))
+    for sens in (False, True):
+        whole = _host_step(host_k3, x, u, "gauss_legendre", 4, 3, 1, sens)
+        whole = whole if sens else (whole,)
+        for r in (0, 17, 36):
+            part = _host_step(host_k3, x[r:r + 1].clone(), u[r:r + 1].clone(),
+                              "gauss_legendre", 4, 3, 1, sens)
+            for p, w in zip(part if sens else (part,), whole):
+                assert torch.equal(p, w[r:r + 1])
+
+
+def test_kernel_source_on_host_rejects_what_it_does_not_build(host_k3):
+    """The host entry returns -1 (the card's entry the same code) for a
+    stage count outside 1-4, an empty batch, a negative Newton iteration
+    count or no substep."""
+    x, u = (torch.as_tensor(a) for a in _states(19, nb=2))
+    A = torch.zeros(16, dtype=torch.float64)
+    out, D = torch.empty(2, 5, dtype=torch.float64), torch.empty(2, 5, 7, dtype=torch.float64)
+    fn = host_k3.host_irk_step_f64
+    args = (x.data_ptr(), u.data_ptr(), A.data_ptr(), A.data_ptr(), DT)
+    assert fn(*args, 3, 1, out.data_ptr(), D.data_ptr(), 2, 4, 0) == 0
+    for it, ns, rows, s in ((3, 1, 2, 5), (3, 1, 2, 0), (3, 1, 0, 4), (-1, 1, 2, 4),
+                            (3, 0, 2, 4)):
+        assert fn(*args, it, ns, out.data_ptr(), D.data_ptr(), rows, s, 0) == -1
 
 
 def test_tf32_stays_off_after_import():

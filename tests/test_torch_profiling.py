@@ -4,6 +4,7 @@ JAX ``bench.py``, on the CPU."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -14,9 +15,10 @@ from doa_mpc_tpu.config import WorldSpec as JSpec
 from doa_mpc_tpu.utils.profiling import tick_flops as j_tick_flops
 from doa_mpc_tpu_torch.config import WorldSpec
 from doa_mpc_tpu_torch.ops.ip_fused import GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE
+from doa_mpc_tpu_torch.ops.op_count import OpCounter
 from doa_mpc_tpu_torch.utils.profiling import (
     F32_OPS_PER_S, HBM_BYTES_PER_S, Timer, bound, device_label, fused_hbm_bytes,
-    speed_of_light_report, tick_flops, time_fn)
+    irk_step_bytes, speed_of_light_report, tick_flops, time_fn)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,6 +55,45 @@ def test_bound_takes_the_larger_time():
     # K1 at B=4096 (chip_smoke.py's bounds line): set by its counted operations
     ms, by = bound(29_736_960, 1_006_078_673)
     assert by == "operations" and ms == pytest.approx(0.01502, abs=5e-6)
+
+
+def test_irk_step_ops_counts_the_kernel_code(tmp_path):
+    """K3's operations (``OpCounter.irk_step``) are counted from its own
+    code (``csrc/irk_step.cu`` built by g++ in ``csrc/op_count.cpp``): what
+    its outputs need, each distinct operation once, none with the blocks'
+    known zeros and ones. By hand at s = 1-4 without a Newton iteration:
+    cos, sin and two products for f(x, u), then 2s + 1 per entry of Phi; at
+    s = 1 with one iteration 62 (Z_2-Z_4 9, cos/sin 2, the Jacobian's v sin
+    and v cos 2 and the block 4, the inverse 2, the residual 5, the solve
+    14 and the K update 5). Per launch: rows times a row's count plus the
+    tableau's s^2 products. The linearization's row at the defaults takes
+    1,987, the plant's 1,543."""
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    opc = OpCounter(str(tmp_path))
+    for s in (1, 2, 3, 4):
+        assert opc.irk_step(1, s, 0, 1, False) == 4 + 5 * (2 * s + 1) + s * s
+    assert opc.irk_step(1, 1, 1, 1, False) == 62 + 1
+    assert opc.irk_step(81_920, 4, 3, 1, True) == 81_920 * 1_987 + 16
+    assert opc.irk_step(4_096, 4, 3, 1, False) == 4_096 * 1_543 + 16
+    for s in (1, 2, 3, 4):
+        assert opc.irk_step(1, s, 3, 1, False) < opc.irk_step(1, s, 3, 1, True) \
+            < opc.irk_step(1, s, 3, 2, True)
+        assert opc.irk_step(1, s, 1, 1, True) < opc.irk_step(1, s, 3, 1, True)
+    with pytest.raises(ValueError, match="no instantiation"):
+        opc.irk_step(1, 5, 3, 1, True)
+
+
+def test_irk_step_bytes_exact():
+    """K3's bytes at the IRK tick's two launches: the linearization's
+    81,920 rows with D (188 B a row in f32) and the plant's 4,096 rows."""
+    assert irk_step_bytes(81_920, 4, True, 4) == 4 * (81_920 * 47 + 20)
+    assert irk_step_bytes(4_096, 4, False, 4) == 4 * (4_096 * 12 + 20)
+    assert irk_step_bytes(10, 3, False, 8) == 8 * (10 * 12 + 12)
+    # the linearization's launch is bound by its bytes: 15,401,040 B against
+    # 162,775,056 operations (test_irk_step_ops_counts_the_kernel_code)
+    ms, by = bound(irk_step_bytes(81_920, 4, True, 4), 81_920 * 1_987 + 16)
+    assert by == "bytes" and ms == pytest.approx(0.0045973, abs=5e-7)
 
 
 def test_speed_of_light_report_fields():
