@@ -23,12 +23,14 @@ and the sweeps' corners through K1 and K3; phase 9 also runs one IRK cell
 alone, whose rows must equal its rows in the paired run. Phase 11 runs the single-scenario path
 through K2 (``RtiController.rti_step``): the ``demo`` command's rollout
 (B=1, 20 IP iterations, 200 ticks) and the f64 parametric tick with
-per-row goals on the card against the CPU; phase 12 trains the RL layer
-(``SubgoalEnv`` at B=64 and DDPG at their defaults, 2 episodes of 10
-steps); in both, K2's plain version and the plain Riccati sweep raise if
-reached. Phase 13 replays the rk4 seed-matched legs ``prod_rk4_qp6`` and
-``prod_fixedbug`` through K1. Every seed-matched replay (phases 4, 7, 9, 13
-and 15) runs through ``doa_mpc_tpu_torch/sim/parity.py`` and so through the
+per-row goals on the card against the CPU; phase 12 runs the RL
+train-and-evaluate driver ``rl/train_eval.py`` at ``results/rl_r5``'s
+width (B=128, M=12, EDGE; 2 training episodes and one evaluation episode
+per arm, 5 steps each), whose two arms must start from the same worlds and
+whose files must carry the committed files' keys; in both, K2's plain
+version and the plain Riccati sweep raise if reached. Phase 13 replays the
+rk4 seed-matched legs ``prod_rk4_qp6`` and ``prod_fixedbug`` through K1.
+Every seed-matched replay (phases 4, 7, 9, 13 and 15) runs through ``doa_mpc_tpu_torch/sim/parity.py`` and so through the
 campaign entry point ``sim/experiments.run_scenario_batch`` (its
 ``compat_rng`` path), the cells of one setting but for the scenario (a
 RANDOM/EDGE pair) as one batch. Phase 15
@@ -44,10 +46,10 @@ runs with the launch counts set to 0 just before it and read just after.
 It times the control ticks (phase 5 takes the fused ticks from the
 ``bench`` command's ``measure`` and prints its JSON line) and the kernels
 (device time from CUDA events around launches queued behind a spin kernel;
-K1 for each instantiation and K2 at B=4096 and B=1), computes each
-kernel's bound from its bytes (``utils/profiling.py``) and the operations
-its outputs need, counted from its code (``ops/op_count.py``), and prints
-one line per phase.
+K1 for each instantiation and K2 at B=4096, B=1 and the RL batch, B=128),
+computes each kernel's bound at the shapes it times from its bytes
+(``utils/profiling.py``) and the operations its outputs need, counted from
+its code (``ops/op_count.py``), and prints one line per phase.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result; it also does so without CUDA or
@@ -291,8 +293,8 @@ def main():
     from doa_mpc_tpu_torch.ops.op_count import OpCounter
     from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
     from doa_mpc_tpu_torch.parallel import mesh as pmesh
-    from doa_mpc_tpu_torch.rl import train as rl_train
-    from doa_mpc_tpu_torch.rl.ddpg import DDPG, DDPGConfig, ReplayBuffer
+    from doa_mpc_tpu_torch.rl import train as rl_train, train_eval
+    from doa_mpc_tpu_torch.rl.ddpg import DDPG, ReplayBuffer
     from doa_mpc_tpu_torch.rl.env import SubgoalEnv
     from doa_mpc_tpu_torch.sim import evaluate, experiments, parity
     from doa_mpc_tpu_torch.sim.closed_loop import (
@@ -330,6 +332,15 @@ def main():
     integrators._library()
     opc = builds[3][0]
     build_s = time.time() - t0
+
+    def k2_bound_of(lqr):
+        """K2's bytes on the f32 LQR batch ``lqr`` (each input read once; x,
+        u and the costate written once), the operations its outputs need,
+        and the bound they give: (bytes, operations, ms, bound_by)."""
+        nb = lqr[0].shape[0]
+        nbytes = 4 * (sum(a.numel() for a in lqr) + nb * ((N + 1) * 5 + N * 2 + N * 5))
+        ops = opc.riccati(N) * nb
+        return (nbytes, ops) + bound(nbytes, ops)
     print(f"phase 2 build: K1, K2, K3 and the op counter in {build_s:.2f} s (one compiler "
           f"each, in parallel); "
           + "; ".join(f"{name} {sec:.2f} s -> {os.path.relpath(path, REPO)}, ptxas: "
@@ -932,13 +943,16 @@ def main():
           f"card ({runs64['cuda'][1]} K2 f64 launches), {runs64['cpu'][2]:.2f} s on the CPU; K2 "
           f"f64 at B=8 rel max|err| {rel64_8:.3e}; card={card}; wall {lap():.1f} s", flush=True)
 
-    # ---- phase 12: the RL layer at full width -----------------------------------
-    # SubgoalEnv at its defaults (B=64, N=20, M=5, 10 IP iterations, rk4, f32,
-    # 10 ticks per step), DDPG at its defaults (hidden 128x128, buffer 100,000,
-    # batch 256); only the depth is cut, to 2 episodes of 10 steps
-    env = SubgoalEnv(max_steps=10, device=dev)
-    agent = DDPG(DDPGConfig(obs_dim=env.obs_dim, act_dim=env.act_dim), device=dev)
-    step_ms, update_ms, bufs = [], [], []
+    # ---- phase 12: the RL train-and-evaluate driver at rl_r5's width ----------
+    # python -m doa_mpc_tpu_torch.rl.train_eval at results/rl_r5's settings:
+    # SubgoalEnv B=128, N=20, M=12, EDGE, 10 IP iterations, rk4, f32, 10 ticks
+    # per step; DDPG at its defaults (hidden 128x128, buffer 100,000, batch
+    # 256) but act_limit 7.2. Only the depth is cut: 2 training episodes and
+    # one evaluation episode per arm, of at most 5 steps each
+    out12 = os.path.join(OUT_DIR, "phase12")
+    argv12 = ["--episodes", "2", "--max-steps", "5", "--eval-episodes", "1", "--scenario",
+              "EDGE", "--n-obst", "12", "--out", out12]
+    step_ms, update_ms, bufs, resets = [], [], [], []
 
     def timed(fn, out):
         def call(*a, **k):
@@ -954,48 +968,103 @@ def main():
         bufs.append(ReplayBuffer.create(*a, **k))
         return bufs[-1]
 
-    env.step, agent.update = timed(env.step, step_ms), timed(agent.update, update_ms)
+    def recording_reset(self, generator, scenario=None):
+        st, obs = env_reset(self, generator, scenario)
+        resets.append((len(step_ms), [t.clone() for t in (st.loop.x0, *st.loop.obst)]))
+        return st, obs
+
+    env_step, env_reset, ddpg_update = SubgoalEnv.step, SubgoalEnv.reset, DDPG.update
+    SubgoalEnv.step, SubgoalEnv.reset = timed(env_step, step_ms), recording_reset
+    DDPG.update = timed(ddpg_update, update_ms)
     rl_train.ReplayBuffer = types.SimpleNamespace(create=recording_create)
+    os.makedirs(out12, exist_ok=True)
     solve_ocp_qp_fused.launches = riccati_solve_fused.launches = 0
     t0 = time.time()
     try:
-        with plain_forbidden(ip_qp, riccati_fused):
-            _, hist = rl_train.train(env, agent, 2, seed=0, verbose=False)
+        with plain_forbidden(ip_qp, riccati_fused), \
+                open(os.path.join(out12, "train_eval.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            run12 = train_eval.main(argv12)
     finally:
         rl_train.ReplayBuffer = ReplayBuffer
+        SubgoalEnv.step, SubgoalEnv.reset, DDPG.update = env_step, env_reset, ddpg_update
     wall_rl = time.time() - t0
     k2_rl, k1_rl = riccati_solve_fused.launches, solve_ocp_qp_fused.launches
+    env, agent, hist, ev12 = run12
     steps_rl = len(step_ms)
     ticks_rl = steps_rl * env.k_ticks
+    train_steps = resets[2][0] if len(resets) == 4 else None
+    _check(env.batch == 128 and env.spec.n_obst == 12 and env.scenario == "EDGE"
+           and agent.cfg.act_limit == 7.2, "phase 12: not rl_r5's settings")
     _check(len(hist) == 2 and all(np.isfinite([h["reward"], h["reached"]]).all() for h in hist),
            f"phase 12: history {hist}")
     _check(k2_rl == 2 * env.opts.qp_iter * ticks_rl and k1_rl == 0,
            f"phase 12: K2 launched {k2_rl} times in {ticks_rl} ticks, K1 {k1_rl} times")
-    _check(len(bufs) == 1 and bufs[0].size == env.batch * steps_rl,
+    _check(len(resets) == 4, f"phase 12: {len(resets)} resets, expected 2 training episodes "
+                             f"and one evaluation episode per arm")
+    _check(len(bufs) == 1 and bufs[0].size == env.batch * train_steps,
            f"phase 12: the buffer holds {bufs[0].size if bufs else None} rows after "
-           f"{steps_rl} steps of {env.batch}")
+           f"{train_steps} training steps of {env.batch}")
     _check(all(bool(torch.isfinite(p).all()) for p in agent.actor.parameters()),
            "phase 12: non-finite actor weights")
-    lqr_rl = [a[:env.batch].contiguous().float() for a in lqr64]
+    _check(all(torch.equal(a, b) for a, b in zip(resets[2][1], resets[3][1])),
+           "phase 12: the two arms' episode-0 reset worlds differ")
+    lay12, lay_r5 = train_eval.layout(out12), train_eval.layout(os.path.join(REPO, "results",
+                                                                             "rl_r5"))
+    _check(lay12 == lay_r5, f"phase 12: the driver's files {lay12} do not carry the keys of "
+                            f"results/rl_r5's {lay_r5}")
+    stats12 = [v for p in ev12["paired_stats"] for v in
+               (p["policy_rate"], p["baseline_rate"], p["delta"], *p["delta_ci95"], p["mcnemar_z"])]
+    _check(np.isfinite(stats12).all(), f"phase 12: paired statistics {ev12['paired_stats']}")
+    # K2 at the env batch: in f64 against its plain version; in f32 the same
+    # bits as these rows of phase 6's B=4096 launch, which is held to the f64
+    # output there (a scenario's result does not depend on the batch). The
+    # f32 errors of these rows alone are printed, not gated: a maximum over
+    # 128 rows against the plain version's is a noisy statistic (PERF.md §6,
+    # PR 11), which the 4096 rows of phase 6 steady
+    lqr_rl64 = [a[:env.batch].contiguous() for a in lqr64]
+    lqr_rl = [a.float() for a in lqr_rl64]
+    k_rl, p_rl, w_rl = (riccati_solve_fused(*lqr_rl), riccati_solve_fused_ref(*lqr_rl),
+                        riccati_solve_fused_ref(*lqr_rl64))
+    rel64_rl = max(float((k - p).abs().max()) / max(1.0, float(p.abs().max()))
+                   for k, p in zip(riccati_solve_fused(*lqr_rl64), w_rl))
+    _check(rel64_rl <= 1e-9, f"K2 f64 at B={env.batch} vs plain f64: relative max|err| "
+                             f"{rel64_rl:.3e} > 1e-9")
+    _check(all(torch.equal(k, k4096[:env.batch]) for k, k4096 in zip(k_rl, k32)),
+           f"K2 f32 at B={env.batch}: rows differ from the same rows of the B={B_MAIN} launch")
     e_rl = [(float((k.double() - w).abs().max()), float((p.double() - w).abs().max()))
-            for k, p, w in zip(riccati_solve_fused(*lqr_rl), riccati_solve_fused_ref(*lqr_rl),
-                               riccati_solve_fused_ref(*[a[:env.batch] for a in lqr64]))]
-    _check(all(np.isfinite(ek) and ek <= 2 * ep for ek, ep in e_rl),
-           f"K2 f32 at B={env.batch} further from the f64 plain output than 2x plain f32: {e_rl}")
+            for k, p, w in zip(k_rl, p_rl, w_rl)]
+    # the same statistic over each 128-row window of phase 6's batch
+    errs = [((k.double() - w).abs().flatten(1).amax(1), (p.double() - w).abs().flatten(1).amax(1))
+            for k, p, w in zip(k32, riccati_solve_fused_ref(*lqr32),
+                               riccati_solve_fused_ref(*lqr64))]
+    win_ok = sum(all(float(ek[r].max()) <= 2 * float(ep[r].max()) for ek, ep in errs)
+                 for r in (slice(i, i + env.batch) for i in range(0, B_MAIN, env.batch)))
     k2_ms_rl = kernel_device_ms(torch, lambda: riccati_solve_fused(*lqr_rl), 20)
-    print(f"phase 12 RL layer: train() 2 episodes, SubgoalEnv B={env.batch} N={env.spec.n_solv} "
-          f"M={env.spec.n_obst} {env.opts.qp_iter} IP iters rk4 f32 k_ticks={env.k_ticks}, "
-          f"DDPG hidden {agent.cfg.hidden} buffer {agent.cfg.buffer_size} batch "
-          f"{agent.cfg.batch_size}: {wall_rl:.1f} s wall, {steps_rl} env steps ({ticks_rl} ticks) "
-          f"at {np.mean(step_ms):.1f} ms/step (median {np.median(step_ms):.1f}), "
+    k2_rl_bytes, k2_rl_ops, k2_rl_bound, k2_rl_by = k2_bound_of(lqr_rl)
+    pol12, base12 = ev12["policy"], ev12["baseline_fixed_goal"]
+    print(f"phase 12 RL driver (python -m doa_mpc_tpu_torch.rl.train_eval {' '.join(argv12)}): "
+          f"SubgoalEnv B={env.batch} N={env.spec.n_solv} M={env.spec.n_obst} {env.scenario} "
+          f"{env.opts.qp_iter} IP iters rk4 f32 k_ticks={env.k_ticks}, DDPG hidden "
+          f"{agent.cfg.hidden} buffer {agent.cfg.buffer_size} batch {agent.cfg.batch_size} "
+          f"act_limit {agent.cfg.act_limit}: {wall_rl:.1f} s wall, {steps_rl} env steps "
+          f"({train_steps} training, {steps_rl - train_steps} evaluation; {ticks_rl} ticks) at "
+          f"{np.mean(step_ms):.1f} ms/step (median {np.median(step_ms):.1f}), "
           f"{len(update_ms)} updates at {np.mean(update_ms):.2f} ms/update (median "
           f"{np.median(update_ms):.2f}); history "
           + "; ".join(f"ep {h['episode']} reward {h['reward']:.2f} reached {h['reached']:.2f}"
                       for h in hist)
-          + f"; K2 launches={k2_rl} (2 x {env.opts.qp_iter} x {ticks_rl}), K1 0; buffer "
-          f"{bufs[0].size} rows | K2 f32 at B={env.batch} kernel/plain vs f64 "
+          + f"; evaluation reached/hit policy {pol12['reached']:.3f}/{pol12['hit']:.3f}, "
+          f"baseline {base12['reached']:.3f}/{base12['hit']:.3f}; the arms' episode-0 worlds "
+          f"equal; files carry results/rl_r5's keys; K2 launches={k2_rl} (2 x "
+          f"{env.opts.qp_iter} x {ticks_rl}), K1 0; buffer {bufs[0].size} rows | K2 f32 at "
+          f"B={env.batch} max|err| vs f64 kernel/plain "
           + ", ".join(f"{ek:.2e}/{ep:.2e}" for ek, ep in e_rl)
-          + f", device time {k2_ms_rl:.4f} ms (CUDA events behind a spin, 20 launches); "
+          + f" (not gated; kernel within 2x plain f32 in {win_ok} of the {B_MAIN // env.batch} "
+          f"{env.batch}-row windows of phase 6's batch), rows equal to phase 6's B={B_MAIN} "
+          f"rows; f64 rel max|err| {rel64_rl:.3e} (limit 1e-9); device time {k2_ms_rl:.4f} ms "
+          f"(CUDA events behind a spin, 20 launches), bound "
+          f"{k2_rl_bound:.6f} ms ({k2_rl_by}: {k2_rl_bytes} B, {k2_rl_ops} operations); "
           f"card={card}; wall {lap():.1f} s", flush=True)
 
     # ---- phase 13: the rk4 seed-matched legs through K1 -------------------------
@@ -1225,12 +1294,17 @@ def main():
     count_s = time.time() - t0
     k1_bytes = fused_hbm_bytes(spec, B_MAIN)
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    k2_bytes = 4 * (sum(a.numel() for a in lqr32) + B_MAIN * ((N + 1) * 5 + N * 2 + N * 5))
-    k2_ops = opc.riccati(N) * B_MAIN
-    k2_bound, k2_by = bound(k2_bytes, k2_ops)
-    print(f"bounds: K1 unicycle {k1_bytes} B and {k1_ops} operations "
-          f"-> {k1_bound:.5f} ms ({k1_by}); K2 {k2_bytes} B and {k2_ops} operations -> "
-          f"{k2_bound:.5f} ms ({k2_by}); against {HBM_BYTES_PER_S:.3g} B/s and "
+    k1_ops_1 = opc.ip_solve(qp1, QP_ITER, uni)
+    k1_bytes_1 = fused_hbm_bytes(spec, 1)
+    k1_bound_1, k1_by_1 = bound(k1_bytes_1, k1_ops_1)
+    k2_bytes, k2_ops, k2_bound, k2_by = k2_bound_of(lqr32)
+    k2_bytes_1, k2_ops_1, k2_bound_1, k2_by_1 = k2_bound_of(lqr32_1)
+    print(f"bounds: K1 unicycle B={B_MAIN} {k1_bytes} B and {k1_ops} operations "
+          f"-> {k1_bound:.5f} ms ({k1_by}), B=1 {k1_bytes_1} B and {k1_ops_1} operations -> "
+          f"{k1_bound_1:.7f} ms ({k1_by_1}); K2 B={B_MAIN} {k2_bytes} B and {k2_ops} operations "
+          f"-> {k2_bound:.5f} ms ({k2_by}), B=1 {k2_bytes_1} B and {k2_ops_1} operations -> "
+          f"{k2_bound_1:.7f} ms ({k2_by_1}), B={len(lqr_rl[0])} {k2_rl_bytes} B and {k2_rl_ops} "
+          f"operations -> {k2_rl_bound:.7f} ms ({k2_rl_by}); against {HBM_BYTES_PER_S:.3g} B/s and "
           f"{F32_OPS_PER_S:.3g} f32 op/s (K1 counted in {count_s:.1f} s); card={card}; "
           f"wall {lap():.1f} s; phases {time.time() - START:.1f} s in all",
           flush=True)

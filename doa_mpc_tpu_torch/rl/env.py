@@ -41,7 +41,8 @@ class SubgoalEnv:
       per step        - 0.5
 
     The world comes from the generator given to :meth:`reset`, and so does
-    the obstacle noise of the episode's ticks."""
+    the obstacle noise of the episode's ticks. ``steps_taken`` counts the
+    calls of :meth:`step`."""
 
     def __init__(self, spec: WorldSpec | None = None,
                  opts: SolverOptions | None = None,
@@ -62,6 +63,7 @@ class SubgoalEnv:
         self.act_dim = 2
         self._tick = make_parametric_tick(self.ctrl)
         self._generator = None
+        self.steps_taken = 0
 
     # -- observation ----------------------------------------------------
     def _obs(self, st: EnvState) -> torch.Tensor:
@@ -100,6 +102,7 @@ class SubgoalEnv:
         final goal, so the loop's flag is cleared before each step (a
         subgoal reached mid-step parks the robot there). Rows that are done
         stay frozen and earn 0. Returns (state, obs, reward, done)."""
+        self.steps_taken += 1
         loop = st.loop._replace(done=torch.zeros_like(st.loop.done))
         hit_before = loop.min_margin <= 0.0
         for _ in range(self.k_ticks):
