@@ -23,6 +23,7 @@ and fails if that fails.
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -32,23 +33,24 @@ from doa_mpc_tpu_torch.config import (
 from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
 from doa_mpc_tpu_torch.sim.obstacles import robot_start_goal
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
-from doa_mpc_tpu_torch.utils.profiling import Timer, device_label, time_fn
+from doa_mpc_tpu_torch.utils.profiling import device_label, time_fn
 
 WARMUP = 10
 REALTIME_S = 0.1   # one control tick of the reference, dt = TF / N
 
 
-def _chain_samples(tick, state, chains, chain_ticks, timer):
+def _chain_samples(tick, state, chains, chain_ticks):
     """Chain means (seconds per tick) of ``chains`` timed chains after
-    ``WARMUP`` ticks; the host clock of every chain (its warm-up tick and
-    synchronize included) goes into ``timer``."""
+    ``WARMUP`` ticks, and the host seconds of all chains (each chain's
+    warm-up tick and synchronize included)."""
     for _ in range(WARMUP):
         state = tick(state)
-    samples = []
+    samples, wall_s = [], 0.0
     for _ in range(chains):
-        with timer.section("chains"):
-            samples.append(time_fn(tick, state, reps=chain_ticks))
-    return samples
+        t0 = time.perf_counter()
+        samples.append(time_fn(tick, state, reps=chain_ticks))
+        wall_s += time.perf_counter() - t0
+    return samples, wall_s
 
 
 def _quantile(samples, q):
@@ -70,17 +72,16 @@ def measure(device="cuda", batch: int = 4096, n_solv: int = 20, n_obst: int = 5,
     params = default_cost_params(spec, dtype=dtype, device=dev)
     start, goal = robot_start_goal(spec)
 
-    def samples(nb, seed, timer):
+    def samples(nb, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = init_loop_state(ctrl, start, goal, "RANDOM", batch_shape=(nb,), generator=gen)
         tick = make_batched_tick(ctrl, goal, params, backend="fused", generator=gen)
-        return _chain_samples(tick, state, chains, chain_ticks, timer)
+        return _chain_samples(tick, state, chains, chain_ticks)
 
-    timer = Timer()
-    main = samples(batch, 0, timer)
-    one = samples(1, 1, Timer())
+    main, wall_s = samples(batch, 0)
+    one, _ = samples(1, 1)
     p50 = _quantile(main, 0.50)
-    wall_tick_s = timer.sections["chains"] / (chains * (chain_ticks + 1))
+    wall_tick_s = wall_s / (chains * (chain_ticks + 1))
     return {
         "metric": f"mpc_solves_per_s_per_{'gpu' if dev.type == 'cuda' else dev.type}_N{n_solv}",
         "value": batch / p50,

@@ -189,6 +189,7 @@ struct Params {
   T *dx, *du, *s, *mu, *stat;
   int B, N, M, iters;
   T reg, tau, tol, stat_tol, sigma_max;
+  int* iters_used;    // per row, the iterations that updated it; may be null
 };
 
 // Shared-memory floats per scenario (state, work arrays, A and B, scratch).
@@ -773,6 +774,7 @@ struct Solver {
     init();
     const T n_pairs = T(2 * N * NU + 2 * (N + 1) * NBX + 2 * (N + 1) * M);
     T mu = T(0), stat = T(0);
+    int used = 0;           // iterations that updated this row
     for (int it = 0; it < p.iters; ++it) {
       // residuals of the pre-update iterate, Qbar, d, predictor right-hand sides
       mu = T(0);
@@ -841,6 +843,7 @@ struct Solver {
       bool finite = (vabs(chk) < T(3.0e38)) && (chk == chk) && (a_p == a_p) && (a_d == a_d);
       // a frozen row keeps its iterate: the whole tile skips the update
       if (!(converged || !finite)) {
+        ++used;
         for (int k = tm.rank(); k <= N; k += tm.size()) {
           T xk[NX], uk[NU] = {0, 0}, pn[NX];
           load1(cx, NX, k, xk);
@@ -871,6 +874,7 @@ struct Solver {
     if (tm.rank() == 0) {
       p.mu[b] = mu;
       p.stat[b] = stat;
+      if (p.iters_used != nullptr) p.iters_used[b] = used;
     }
     tm.sync();              // the tile's arrays are free for its next scenario
   }
@@ -992,7 +996,8 @@ cudaError_t plan_for(int structure, int B, int N, int M, Plan* pl) {
 }  // namespace
 
 // structure: 0 generic, 1 unicycle. work: device memory of
-// ip_solve_workspace_floats floats, or null when that is 0.
+// ip_solve_workspace_floats floats, or null when that is 0. iters_used: B
+// ints, each row's count of iterations that updated it, or null.
 extern "C" int ip_solve_f32(
     const float* A, const float* Bm, const float* c, const float* dx0,
     const float* Q, const float* q, const float* R, const float* r, const float* S,
@@ -1001,10 +1006,10 @@ extern "C" int ip_solve_f32(
     float* dx, float* du, float* s, float* mu, float* stat,
     int B, int N, int M, int iters,
     float reg, float tau, float tol, float stat_tol, float sigma_max,
-    int structure, float* work, void* stream) {
+    int structure, float* work, int* iters_used, void* stream) {
   ipk::Params<float> p{A, Bm, c, dx0, Q, q, R, r, S, lbu, ubu, lbx, ubx, C, h, zl, Zl,
                        dx, du, s, mu, stat, B, N, M, iters,
-                       reg, tau, tol, stat_tol, sigma_max};
+                       reg, tau, tol, stat_tol, sigma_max, iters_used};
   cudaStream_t st = (cudaStream_t)stream;
   if (structure == 0) return launch<ipk::Generic>(p, work, st);
   if (structure == 1) return launch<ipk::Unicycle>(p, work, st);

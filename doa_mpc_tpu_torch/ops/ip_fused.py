@@ -11,6 +11,11 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   plain version. There is no fallback from the kernel to the plain version.
   The kernel reads the fields batch-first as they come and writes dx, du, s
   batch-first; ``structure`` picks its instantiation (generic or unicycle).
+  While a ``torch.profiler`` records, the kernel also writes each row's
+  count of the iterations that updated it, and the wrapper keeps it
+  (``utils.profiling.kept("k1.iters")``): a converged row keeps its iterate,
+  so that is the iterations the row needed. Otherwise the kernel gets a null
+  pointer and counts nothing.
 - :func:`solve_ocp_qp_fused_ref` is the plain PyTorch version. It follows the
   fused kernel's formulas, not ``ip_qp``'s: no ``sigma_retry``; the
   fraction-to-boundary step is ``min(1, tau * min ratio)`` with the 2.0
@@ -20,7 +25,8 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   row of the stationarity residual is kept but left out of ``stat``;
   ``P_N = Qbar(N)``; the Cholesky of Huu adds ``reg`` and floors at 1e-30.
   Stage-serial recursions are Python loops over stages; stage-local work is
-  batched over scenarios and stages.
+  batched over scenarios and stages. It counts and keeps each row's
+  iterations as the kernel does.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from doa_mpc_tpu_torch.ops import cuda_build
 from doa_mpc_tpu_torch.ops.ip_qp import IpSolution
 from doa_mpc_tpu_torch.ops.ocp_qp import IDXBX, OcpQp, normalize_cost, scatter_idxbx
+from doa_mpc_tpu_torch.utils.profiling import keep, tracing
 
 _T_FLOOR = 1e-12
 _ZL_FLOOR = 1e-6
@@ -192,6 +199,9 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     l_xl, l_xu, l_ul, l_uu = 1.0 / t_xl, 1.0 / t_xu, 1.0 / t_ul, 1.0 / t_uu
     nu = torch.zeros_like(qp.c)
 
+    # while a profiler records: each row's iterations that updated it
+    used = torch.zeros((nb,), dtype=torch.int32, device=dx.device) if tracing() else None
+
     def sig(l, t):
         return torch.clamp(l / torch.clamp_min(t, _T_FLOOR), 0.0, sigma_max)
 
@@ -321,6 +331,8 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         converged = (mu < tol) & (stat < stat_tol)
         finite = (torch.abs(chk) < _F32MAX) & (chk == chk) & (a_p == a_p) & (a_d == a_d)
         frozen = converged | ~finite
+        if used is not None:
+            used += (~frozen).to(torch.int32)
 
         def upd(old, a, step, positive=False):
             v = old + _bc(a, old) * step
@@ -338,6 +350,8 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         t_ul, l_ul = upd(t_ul, a_p, cor["tul"], True), upd(l_ul, a_d, cor["lul"], True)
         t_uu, l_uu = upd(t_uu, a_p, cor["tuu"], True), upd(l_uu, a_d, cor["luu"], True)
 
+    if used is not None:
+        keep("k1.iters", used)
     return IpSolution(dx=dx, du=du, s=s, mu=mu, kappa=kappa, stat_res=stat)
 
 
@@ -355,7 +369,7 @@ def build_kernel() -> str:
 def _library():
     lib = ctypes.CDLL(build_kernel())
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ip_solve_f32.argtypes = [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32, ptr, ptr]
+    lib.ip_solve_f32.argtypes = [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32, ptr, ptr, ptr]
     lib.ip_solve_f32.restype = i32
     lib.ip_solve_workspace_floats.argtypes = [i32] * 4
     lib.ip_solve_workspace_floats.restype = ctypes.c_longlong
@@ -456,6 +470,8 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     s = torch.empty((nb, N + 1, M), **f32)
     mu = torch.empty((nb,), **f32)
     stat = torch.empty((nb,), **f32)
+    # while a profiler records, the kernel writes each row's iterations
+    used = torch.empty((nb,), dtype=torch.int32, device=dev) if tracing() else None
     lib = _library()
     with torch.cuda.device(dev):      # plan and launch on the card that holds the data
         n_work = workspace_floats(nb, N, M, structure)
@@ -463,13 +479,16 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ip_solve_f32(*[a.data_ptr() for a in ins + [dx, du, s, mu, stat]],
                               nb, N, M, int(iters), reg, tau, tol, stat_tol, sigma_max,
-                              sid, None if work is None else work.data_ptr(), stream)
+                              sid, None if work is None else work.data_ptr(),
+                              None if used is None else used.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"ip_solve_f32 launch failed (N={N}, M={M}, {smem_bytes(N, M, structure)} B of "
             f"shared memory per block, {n_work} floats of workspace): "
             + lib.ip_solve_error_string(rc).decode())
     solve_ocp_qp_fused.launches += 1
+    if used is not None:
+        keep("k1.iters", used)
     return IpSolution(dx=dx, du=du, s=s, mu=mu, kappa=kappa, stat_res=stat)
 
 

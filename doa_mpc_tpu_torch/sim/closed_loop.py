@@ -40,6 +40,7 @@ from doa_mpc_tpu_torch.sim.obstacles import (
     ObstacleState, generate_obstacles, obstacle_step, predict_trajectory,
 )
 from doa_mpc_tpu_torch.solver.sqp_rti import RtiController, RtiState
+from doa_mpc_tpu_torch.utils.profiling import keep, span
 
 BACKENDS = ("fused", "torch", "riccati", "zero")
 
@@ -117,48 +118,50 @@ def _advance(ctrl: RtiController, st: LoopState, rti_new: RtiState, u0, sol, goa
     tick: the status-4 analogue, the plant, the world, the metrics against
     ``goal`` ((2,) or (B, 2)), the shift and the freeze. Returns the new
     state and ``rti_new`` after any status-4 reset (the pre-shift horizon)."""
-    spec, opts = ctrl.spec, ctrl.options
-    # status-4 analogue: rows whose solve did not converge reset their warm
-    # start and (compat_brake_bug) brake the plant; the failed u0 is still
-    # applied this tick
-    x0_eff, resets = st.x0, st.resets
-    if opts.init_guess_when_error:
-        fail = ~((sol.mu < opts.fail_mu_tol) & (sol.stat_res < opts.fail_stat_tol))
-        if opts.compat_brake_bug and opts.init_guess != "interpolate":
-            braked = torch.cat([st.x0[:, :3], torch.zeros_like(st.x0[:, 3:])], 1)
-            x0_eff = torch.where(fail[:, None], braked, st.x0)
-        reset = ctrl.initial_guess(x0_eff, goal)
-        rti_new = RtiState(*(torch.where(fail.reshape(-1, 1, 1), a, b)
-                             for a, b in zip(reset, rti_new)))
-        resets = st.resets + fail.to(torch.int32)
+    with span("doa.advance"):
+        spec, opts = ctrl.spec, ctrl.options
+        # status-4 analogue: rows whose solve did not converge reset their warm
+        # start and (compat_brake_bug) brake the plant; the failed u0 is still
+        # applied this tick
+        x0_eff, resets = st.x0, st.resets
+        if opts.init_guess_when_error:
+            fail = ~((sol.mu < opts.fail_mu_tol) & (sol.stat_res < opts.fail_stat_tol))
+            if opts.compat_brake_bug and opts.init_guess != "interpolate":
+                braked = torch.cat([st.x0[:, :3], torch.zeros_like(st.x0[:, 3:])], 1)
+                x0_eff = torch.where(fail[:, None], braked, st.x0)
+            reset = ctrl.initial_guess(x0_eff, goal)
+            rti_new = RtiState(*(torch.where(fail.reshape(-1, 1, 1), a, b)
+                                 for a, b in zip(reset, rti_new)))
+            resets = st.resets + fail.to(torch.int32)
 
-    x_new = ctrl.integrate(x0_eff, u0)
-    obst_new = obstacle_step(st.obst, spec, random_move=random_move, noise=noise,
-                             generator=generator)
+        with span("doa.integrate"):
+            x_new = ctrl.integrate(x0_eff, u0)
+        obst_new = obstacle_step(st.obst, spec, random_move=random_move, noise=noise,
+                                 generator=generator)
 
-    oob = (st.oob | (torch.abs(x_new[:, 0]) > spec.x_max)
-           | (torch.abs(x_new[:, 1]) > spec.y_max))
-    d = x_new[:, None, :2] - obst_new.pos
-    margin = torch.amin(torch.linalg.norm(d, dim=-1)
-                        - (spec.r_obst + spec.r_robot), dim=-1)
-    min_margin = torch.minimum(st.min_margin, margin)
-    dist = torch.linalg.norm(x_new[:, :2] - goal, dim=-1)
-    reached = dist <= spec.tol
-    steps = st.steps + (~reached).to(torch.int32)
-    rti_shifted = ctrl.shift(rti_new)
+        oob = (st.oob | (torch.abs(x_new[:, 0]) > spec.x_max)
+               | (torch.abs(x_new[:, 1]) > spec.y_max))
+        d = x_new[:, None, :2] - obst_new.pos
+        margin = torch.amin(torch.linalg.norm(d, dim=-1)
+                            - (spec.r_obst + spec.r_robot), dim=-1)
+        min_margin = torch.minimum(st.min_margin, margin)
+        dist = torch.linalg.norm(x_new[:, :2] - goal, dim=-1)
+        reached = dist <= spec.tol
+        steps = st.steps + (~reached).to(torch.int32)
+        rti_shifted = ctrl.shift(rti_new)
 
-    new = LoopState(
-        x0=x_new, rti=rti_shifted, obst=obst_new,
-        done=st.done | reached, reached=st.reached | reached,
-        oob=oob, min_margin=min_margin, dist=dist, steps=steps,
-        resets=resets)
-    frozen = LoopState(
-        x0=_freeze(st.done, st.x0, new.x0),
-        rti=RtiState(*(_freeze(st.done, o, u) for o, u in zip(st.rti, new.rti))),
-        obst=ObstacleState(*(_freeze(st.done, o, u) for o, u in zip(st.obst, new.obst))),
-        **{f: _freeze(st.done, getattr(st, f), getattr(new, f))
-           for f in LoopState._fields[3:]})
-    return frozen, rti_new
+        new = LoopState(
+            x0=x_new, rti=rti_shifted, obst=obst_new,
+            done=st.done | reached, reached=st.reached | reached,
+            oob=oob, min_margin=min_margin, dist=dist, steps=steps,
+            resets=resets)
+        frozen = LoopState(
+            x0=_freeze(st.done, st.x0, new.x0),
+            rti=RtiState(*(_freeze(st.done, o, u) for o, u in zip(st.rti, new.rti))),
+            obst=ObstacleState(*(_freeze(st.done, o, u) for o, u in zip(st.obst, new.obst))),
+            **{f: _freeze(st.done, getattr(st, f), getattr(new, f))
+               for f in LoopState._fields[3:]})
+        return frozen, rti_new
 
 
 def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
@@ -188,30 +191,37 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
     def tick(st: LoopState, noise: torch.Tensor | None = None) -> LoopState:
         """One tick; ``noise`` is an optional (B, M, 2) standard-normal draw
         (the compat_rng stream)."""
-        pred = predict_trajectory(st.obst, spec, n,
-                                  compat_pred_bug=opts.compat_pred_bug)
-        pred = pred.movedim(0, 1)                              # (B, N+1, M, 2)
-        qp = ctrl.build_qp(st.rti, st.x0, goal, pred, params)
+        with span("doa.tick", tick=True):
+            with span("doa.forecast"):
+                pred = predict_trajectory(st.obst, spec, n,
+                                          compat_pred_bug=opts.compat_pred_bug)
+                pred = pred.movedim(0, 1)                      # (B, N+1, M, 2)
+            qp = ctrl.build_qp(st.rti, st.x0, goal, pred, params)
 
-        if backend == "fused":
-            # build_qp's QPs carry the unicycle structure, as in the JAX tick
-            sol = solve_ocp_qp_fused(qp, iters=opts.qp_iter, tau=opts.ip_tau,
-                                     structure=UNICYCLE_QP_STRUCTURE)
-        elif backend != "zero":
-            # no ``reg``: the solver's dtype default (1e-6 in f32), as the
-            # JAX package's batched tick does
-            sol = solve_ocp_qp(qp, iters=opts.qp_iter, tau=opts.ip_tau, backend=backend)
-        else:
-            nb = st.x0.shape[0]
-            zeros = torch.zeros((nb,), dtype=st.x0.dtype, device=st.x0.device)
-            sol = IpSolution(dx=torch.zeros_like(st.rti.x_traj),
-                             du=torch.zeros_like(st.rti.u_traj),
-                             s=torch.zeros_like(qp.hval), mu=zeros,
-                             kappa=torch.ones_like(zeros), stat_res=zeros)
-        rti_new = RtiState(x_traj=st.rti.x_traj + sol.dx,
-                           u_traj=st.rti.u_traj + sol.du)
-        u0 = rti_new.u_traj[:, 0]
-        return _advance(ctrl, st, rti_new, u0, sol, goal, random_move, noise, generator)[0]
+            with span("doa.solve"):
+                if backend == "fused":
+                    # the i-th kept ``done`` belongs to the i-th K1 launch
+                    keep("tick.done", st.done)
+                    # build_qp's QPs carry the unicycle structure, as in the JAX tick
+                    sol = solve_ocp_qp_fused(qp, iters=opts.qp_iter, tau=opts.ip_tau,
+                                             structure=UNICYCLE_QP_STRUCTURE)
+                elif backend != "zero":
+                    # no ``reg``: the solver's dtype default (1e-6 in f32), as the
+                    # JAX package's batched tick does
+                    sol = solve_ocp_qp(qp, iters=opts.qp_iter, tau=opts.ip_tau,
+                                       backend=backend)
+                else:
+                    nb = st.x0.shape[0]
+                    zeros = torch.zeros((nb,), dtype=st.x0.dtype, device=st.x0.device)
+                    sol = IpSolution(dx=torch.zeros_like(st.rti.x_traj),
+                                     du=torch.zeros_like(st.rti.u_traj),
+                                     s=torch.zeros_like(qp.hval), mu=zeros,
+                                     kappa=torch.ones_like(zeros), stat_res=zeros)
+            rti_new = RtiState(x_traj=st.rti.x_traj + sol.dx,
+                               u_traj=st.rti.u_traj + sol.du)
+            u0 = rti_new.u_traj[:, 0]
+            return _advance(ctrl, st, rti_new, u0, sol, goal, random_move, noise,
+                            generator)[0]
 
     return tick
 
@@ -265,12 +275,14 @@ def make_parametric_tick(ctrl: RtiController, random_move: bool = True,
 
     def tick(st: LoopState, goal, params: CostParams,
              noise: torch.Tensor | None = None):
-        goal = torch.as_tensor(goal, dtype=ctrl.dtype, device=ctrl.device)
-        pred = predict_trajectory(st.obst, spec, n,
-                                  compat_pred_bug=opts.compat_pred_bug).movedim(0, 1)
-        rti_new, u0, sol = ctrl.rti_step(st.rti, st.x0, goal, pred, params)
-        frozen, rti_new = _advance(ctrl, st, rti_new, u0, sol, goal, random_move, noise,
-                                   generator)
+        with span("doa.tick", tick=True):
+            goal = torch.as_tensor(goal, dtype=ctrl.dtype, device=ctrl.device)
+            with span("doa.forecast"):
+                pred = predict_trajectory(st.obst, spec, n,
+                                          compat_pred_bug=opts.compat_pred_bug).movedim(0, 1)
+            rti_new, u0, sol = ctrl.rti_step(st.rti, st.x0, goal, pred, params)
+            frozen, rti_new = _advance(ctrl, st, rti_new, u0, sol, goal, random_move, noise,
+                                       generator)
         if return_pred:
             return frozen, rti_new.x_traj
         return frozen

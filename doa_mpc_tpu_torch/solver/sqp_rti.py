@@ -33,6 +33,7 @@ from doa_mpc_tpu_torch.ops.integrators import make_integrator, make_linearizatio
 from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE  # noqa: F401
 from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
 from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, IDXBX, OcpQp, scatter_idxbx
+from doa_mpc_tpu_torch.utils.profiling import span
 
 
 class RtiState(NamedTuple):
@@ -104,83 +105,85 @@ class RtiController:
         per row, (B, 2); so is each ``params`` leaf: its own shape, or
         (B,) + that shape. A shared input gives the same QP, bit for bit,
         as the same input repeated on every row."""
-        spec, opts = self.spec, self.options
-        n, nx, nu = spec.n_solv, spec.nx, spec.nu
-        dt = spec.tf / spec.n_solv
-        xg, ug = state.x_traj, state.u_traj
-        nb = xg.shape[0]
-        kw = dict(dtype=xg.dtype, device=xg.device)
+        with span("doa.build_qp"):
+            spec, opts = self.spec, self.options
+            n, nx, nu = spec.n_solv, spec.nx, spec.nu
+            dt = spec.tf / spec.n_solv
+            xg, ug = state.x_traj, state.u_traj
+            nb = xg.shape[0]
+            kw = dict(dtype=xg.dtype, device=xg.device)
 
-        def rows(leaf, ndim, k):
-            """A per-row params leaf with k axes after B, to broadcast over
-            (B, <k axes>, ...); a shared leaf as it is."""
-            if leaf.ndim == ndim:
-                return leaf
-            return leaf.reshape(leaf.shape[:1] + (1,) * k + leaf.shape[1:])
+            def rows(leaf, ndim, k):
+                """A per-row params leaf with k axes after B, to broadcast over
+                (B, <k axes>, ...); a shared leaf as it is."""
+                if leaf.ndim == ndim:
+                    return leaf
+                return leaf.reshape(leaf.shape[:1] + (1,) * k + leaf.shape[1:])
 
-        def with_terminal(path, term, k):
-            """Path stages (..., n, <k trailing axes>) and the terminal one
-            (..., <k trailing axes>) -> (..., n+1, ...), the shared or per-row
-            leading axes broadcast against each other."""
-            term = term.unsqueeze(-1 - k)
-            lead = torch.broadcast_shapes(path.shape[:-1 - k], term.shape[:-1 - k])
-            return torch.cat([path.expand(lead + path.shape[-1 - k:]),
-                              term.expand(lead + term.shape[-1 - k:])], -1 - k)
+            def with_terminal(path, term, k):
+                """Path stages (..., n, <k trailing axes>) and the terminal one
+                (..., <k trailing axes>) -> (..., n+1, ...), the shared or per-row
+                leading axes broadcast against each other."""
+                term = term.unsqueeze(-1 - k)
+                lead = torch.broadcast_shapes(path.shape[:-1 - k], term.shape[:-1 - k])
+                return torch.cat([path.expand(lead + path.shape[-1 - k:]),
+                                  term.expand(lead + term.shape[-1 - k:])], -1 - k)
 
-        phi, A, Bm = self.lin(xg[:, :-1], ug)
-        c = phi - xg[:, 1:]
+            with span("doa.linearize"):
+                phi, A, Bm = self.lin(xg[:, :-1], ug)
+            c = phi - xg[:, 1:]
 
-        sc = torch.full((n + 1,), dt if opts.cost_scale_dt else 1.0, **kw)
-        sc[-1] = 1.0
-        w_q = scatter_idxbx(params.q_diag, nx)                 # (nx,) or (B, nx)
-        w_qe = scatter_idxbx(params.qe_diag, nx)
-        yref = torch.zeros(goal.shape[:-1] + (nx,), **kw)
-        yref[..., 0], yref[..., 1] = goal[..., 0], goal[..., 1]
-        if goal.ndim == 2:
-            yref = yref[:, None]                               # (B, 1, nx)
+            sc = torch.full((n + 1,), dt if opts.cost_scale_dt else 1.0, **kw)
+            sc[-1] = 1.0
+            w_q = scatter_idxbx(params.q_diag, nx)                 # (nx,) or (B, nx)
+            w_qe = scatter_idxbx(params.qe_diag, nx)
+            yref = torch.zeros(goal.shape[:-1] + (nx,), **kw)
+            yref[..., 0], yref[..., 1] = goal[..., 0], goal[..., 1]
+            if goal.ndim == 2:
+                yref = yref[:, None]                               # (B, 1, nx)
 
-        lm = params.lm_reg
-        lm_sc = sc if opts.lm_scale_dt else torch.ones_like(sc)
-        eye_x, eye_u = torch.eye(nx, **kw), torch.eye(nu, **kw)
-        Q = (sc[:-1, None, None] * torch.diag_embed(w_q).unsqueeze(-3)
-             + (lm_sc[:-1, None, None] * rows(lm, 0, 3)) * eye_x[None])
-        Q_N = torch.diag_embed(w_qe) + rows(lm, 0, 2) * eye_x
-        Q = with_terminal(Q, Q_N, 2).expand(nb, n + 1, nx, nx)
-        w_stage = with_terminal(w_q.unsqueeze(-2).expand(w_q.shape[:-1] + (n, nx)), w_qe, 1)
-        q = sc[:, None] * (w_stage * (xg - yref))
+            lm = params.lm_reg
+            lm_sc = sc if opts.lm_scale_dt else torch.ones_like(sc)
+            eye_x, eye_u = torch.eye(nx, **kw), torch.eye(nu, **kw)
+            Q = (sc[:-1, None, None] * torch.diag_embed(w_q).unsqueeze(-3)
+                 + (lm_sc[:-1, None, None] * rows(lm, 0, 3)) * eye_x[None])
+            Q_N = torch.diag_embed(w_qe) + rows(lm, 0, 2) * eye_x
+            Q = with_terminal(Q, Q_N, 2).expand(nb, n + 1, nx, nx)
+            w_stage = with_terminal(w_q.unsqueeze(-2).expand(w_q.shape[:-1] + (n, nx)), w_qe, 1)
+            q = sc[:, None] * (w_stage * (xg - yref))
 
-        R = (sc[:-1, None, None] * torch.diag_embed(params.r_diag).unsqueeze(-3)
-             + (lm_sc[:-1, None, None] * rows(lm, 0, 3)) * eye_u[None]).expand(nb, n, nu, nu)
-        r = sc[:-1, None] * rows(params.r_diag, 1, 1) * ug
-        S = torch.zeros((nb, n, nu, nx), **kw)
+            R = (sc[:-1, None, None] * torch.diag_embed(params.r_diag).unsqueeze(-3)
+                 + (lm_sc[:-1, None, None] * rows(lm, 0, 3)) * eye_u[None]).expand(nb, n, nu, nu)
+            r = sc[:-1, None] * rows(params.r_diag, 1, 1) * ug
+            S = torch.zeros((nb, n, nu, nx), **kw)
 
-        u_bound = rows(params.u_bound, 0, 2)
-        lb_u = -u_bound - ug
-        ub_u = u_bound - ug
-        lo = torch.stack(torch.broadcast_tensors(-params.x_bound, -params.x_bound,
-                                                 -params.v_bound, -params.v_bound), -1)
-        xg_sel = xg[..., list(IDXBX)]
-        lb_x = (rows(lo, 1, 1) - xg_sel).clone()
-        ub_x = (-rows(lo, 1, 1) - xg_sel).clone()
-        for k in (0, n):          # stage 0 is the x0 equality, stage N has no box
-            lb_x[:, k] = -BIG_BOUND
-            ub_x[:, k] = BIG_BOUND
+            u_bound = rows(params.u_bound, 0, 2)
+            lb_u = -u_bound - ug
+            ub_u = u_bound - ug
+            lo = torch.stack(torch.broadcast_tensors(-params.x_bound, -params.x_bound,
+                                                     -params.v_bound, -params.v_bound), -1)
+            xg_sel = xg[..., list(IDXBX)]
+            lb_x = (rows(lo, 1, 1) - xg_sel).clone()
+            ub_x = (-rows(lo, 1, 1) - xg_sel).clone()
+            for k in (0, n):          # stage 0 is the x0 equality, stage N has no box
+                lb_x[:, k] = -BIG_BOUND
+                ub_x[:, k] = BIG_BOUND
 
-        hval = obstacle_h(xg, obst_traj, safe_dist_sq(spec))
-        C = obstacle_h_jac(xg, obst_traj)
+            hval = obstacle_h(xg, obst_traj, safe_dist_sq(spec))
+            C = obstacle_h_jac(xg, obst_traj)
 
-        goal4 = torch.zeros(goal.shape[:-1] + (len(IDXBX),), **kw)
-        goal4[..., 0], goal4[..., 1] = goal[..., 0], goal[..., 1]
-        scale = params.slack_scale * (
-            torch.sum((x0[:, list(IDXBX)] - goal4) ** 2, dim=-1) + params.slack_offset)
-        stage_idx = torch.arange(n + 1, **kw)
-        alpha = scale[:, None] * (n - stage_idx) / n          # alpha_N = 0
-        slack_sc = sc if opts.slack_scale_dt else torch.ones_like(sc)
-        zl = (slack_sc[None, :, None] * alpha[:, :, None]).expand(nb, n + 1, spec.n_obst)
+            goal4 = torch.zeros(goal.shape[:-1] + (len(IDXBX),), **kw)
+            goal4[..., 0], goal4[..., 1] = goal[..., 0], goal[..., 1]
+            scale = params.slack_scale * (
+                torch.sum((x0[:, list(IDXBX)] - goal4) ** 2, dim=-1) + params.slack_offset)
+            stage_idx = torch.arange(n + 1, **kw)
+            alpha = scale[:, None] * (n - stage_idx) / n          # alpha_N = 0
+            slack_sc = sc if opts.slack_scale_dt else torch.ones_like(sc)
+            zl = (slack_sc[None, :, None] * alpha[:, :, None]).expand(nb, n + 1, spec.n_obst)
 
-        return OcpQp(A=A, B=Bm, c=c, dx0=x0 - xg[:, 0], Q=Q, q=q, R=R, r=r, S=S,
-                     lb_u=lb_u, ub_u=ub_u, lb_x=lb_x, ub_x=ub_x,
-                     C=C, hval=hval, zl=zl, Zl=zl)
+            return OcpQp(A=A, B=Bm, c=c, dx0=x0 - xg[:, 0], Q=Q, q=q, R=R, r=r, S=S,
+                         lb_u=lb_u, ub_u=ub_u, lb_x=lb_x, ub_x=ub_x,
+                         C=C, hval=hval, zl=zl, Zl=zl)
 
     def rti_step(self, state: RtiState, x0: torch.Tensor, goal: torch.Tensor,
                  obst_traj: torch.Tensor, params: CostParams):
@@ -199,8 +202,9 @@ class RtiController:
         ``options.ip_reg``. Returns (new_state, u0 (B, nu), solution); u0 is
         the control applied to the plant."""
         qp = self.build_qp(state, x0, goal, obst_traj, params)
-        sol = solve_ocp_qp(qp, iters=self.options.qp_iter, tau=self.options.ip_tau,
-                           reg=self.options.ip_reg, backend="riccati")
+        with span("doa.solve"):
+            sol = solve_ocp_qp(qp, iters=self.options.qp_iter, tau=self.options.ip_tau,
+                               reg=self.options.ip_reg, backend="riccati")
         new = RtiState(x_traj=state.x_traj + sol.dx, u_traj=state.u_traj + sol.du)
         return new, new.u_traj[:, 0], sol
 

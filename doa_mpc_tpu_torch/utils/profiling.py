@@ -1,6 +1,7 @@
 """Performance accounting (``doa_mpc_tpu/utils/profiling.py``): the FLOP
-model of a tick, the bytes of kernels K1 and K3, the card's bounds, and
-timing. The kernels' operations are counted by ``ops/op_count.py``.
+model of a tick, the bytes of kernels K1 and K3, the card's bounds, timing,
+and the tick's spans. The kernels' operations are counted by
+``ops/op_count.py``.
 
 The bounds model one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data
 sheet: 3.35 TB/s of HBM and 67 TFLOP/s in float32 outside the tensor cores.
@@ -8,20 +9,29 @@ A bound is the larger of the bytes a function must move (each input read
 once, each output written once) over the memory rate and its operations
 over the f32 rate; state it beside the card's power limit, which
 :func:`device_label` reads.
+
+Spans and kept tensors exist only while a ``torch.profiler`` records: run
+any command under ``torch.profiler.profile`` and the trace holds the tick's
+phases (:func:`span`, ``doa.*``) on the clock of its device operations, and
+:func:`kept` holds what the tick kept for readers (``k1.iters``, K1's
+iterations per row; ``tick.done``, the batched tick's input ``done``, the
+i-th one beside the i-th K1 launch). With no profiler recording, a span is
+one check of the profiler's flag and a shared object that does nothing, and
+nothing is kept. This module imports nothing of the package at import time,
+so every module can import it.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import collections
 import subprocess
 import time
 
 import torch
 
-from doa_mpc_tpu_torch.ops.ip_fused import GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE
-
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+KEPT_MAX = 1024        # the newest references kept per name
 
 
 def tick_flops(spec, qp_iter: int, batch: int) -> dict:
@@ -55,6 +65,8 @@ def fused_hbm_bytes(spec, batch: int, structure=None) -> int:
     count, and dx, du, s, mu, stat written once. The unicycle instantiation
     skips the entries the structure fixes (off-diagonal Q and R, S, the
     zero columns of C, the unit columns of A)."""
+    from doa_mpc_tpu_torch.ops.ip_fused import GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE
+
     structure = UNICYCLE_QP_STRUCTURE if structure is None else structure
     if structure not in (GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE):
         raise ValueError("K1 has instantiations for GENERIC_STRUCTURE and "
@@ -154,21 +166,61 @@ def device_label(device) -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-@dataclasses.dataclass
-class Timer:
-    """Accumulating section timer for host-side phases."""
+# ---------------------------------------------------------------------------
+# spans and kept tensors, on while a torch.profiler records
+# ---------------------------------------------------------------------------
 
-    sections: dict = dataclasses.field(default_factory=dict)
+# True while a torch.profiler records (False in its schedule's warm-up)
+tracing = torch.autograd._profiler_enabled
+# a host-only range: unlike ``record_function``'s user annotation it puts no
+# range of its own on the device's timeline, and its keyword values show in
+# the trace's args when the profiler records shapes
+_range = torch._C._profiler._RecordFunctionFast
 
-    def section(self, name):
-        timer = self
 
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
+class _Off:
+    """The span while no profiler records: enters and exits, nothing else."""
 
-            def __exit__(self, *a):
-                timer.sections[name] = (timer.sections.get(name, 0.0)
-                                        + time.perf_counter() - self.t0)
+    __slots__ = ()
 
-        return _Ctx()
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_ticks = 0
+_kept: dict = {}
+
+
+def span(name: str, tick: bool = False):
+    """A context manager over one phase of the tick, ``name`` (``doa.*``).
+
+    ``tick=True`` on the span that opens a tick: the tick count (every tick,
+    traced or not) advances. While a profiler records, every span is a range
+    in its trace whose args carry the current tick's number; otherwise it is
+    one shared object that does nothing."""
+    global _ticks
+    if tick:
+        _ticks += 1
+    if not tracing():
+        return _OFF
+    return _range(name, (), {"tick": _ticks})
+
+
+def keep(name: str, tensor: torch.Tensor) -> None:
+    """While a profiler records, keep a reference to ``tensor`` under
+    ``name`` (the newest :data:`KEPT_MAX`): no copy, no kernel, no sync."""
+    if tracing():
+        _kept.setdefault(name, collections.deque(maxlen=KEPT_MAX)).append(tensor)
+
+
+def kept(name: str) -> list:
+    """The tensors kept under ``name``, oldest first."""
+    return list(_kept.get(name, ()))
+
+
+def clear_kept() -> None:
+    _kept.clear()

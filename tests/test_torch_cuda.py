@@ -12,15 +12,20 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec
+from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
 from doa_mpc_tpu_torch.ops import integrators, ip_fused, riccati_fused
 from doa_mpc_tpu_torch.ops.ip_fused import (
     GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE, solve_ocp_qp_fused, solve_ocp_qp_fused_ref)
 from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
 from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, OcpQp
 from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
+from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
 from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
+from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
+from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
+from doa_mpc_tpu_torch.utils import profiling
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "hard_qps_f32.npz")
 
@@ -202,6 +207,56 @@ def test_main_path_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     assert np.isfinite(gpu).all()
     np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
     np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
+
+
+def test_kernel_counts_the_iterations_its_plain_version_counts(cuda, monkeypatch):
+    """K1's per-row iteration counts (written while a profiler records) on
+    one campaign tick's QPs (rk4, B=256, N=20, M=5, 100 iterations, after 5
+    ticks) against the plain version's in float32 on the CPU: equal on at
+    least 95% of the rows and within 2 on the rest, since the two round
+    differently and a row near the tolerances may meet them an iteration
+    apart. With no profiler recording the kernel gets a null pointer and
+    nothing is kept; the count changes none of its outputs."""
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=100)
+    opts = SolverOptions(qp_iter=100, integrator="rk4")
+    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device=cuda)
+    params = default_cost_params(spec, dtype=torch.float32, device=cuda)
+    start, goal = robot_start_goal(spec)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    st = init_loop_state(ctrl, start, goal, "RANDOM", batch_shape=(256,), generator=gen)
+    tick = make_batched_tick(ctrl, goal, params, backend="fused", generator=gen)
+    for _ in range(5):
+        st = tick(st)
+    pred = predict_trajectory(st.obst, spec, spec.n_solv).movedim(0, 1)
+    qp = ctrl.build_qp(st.rti, st.x0, torch.as_tensor(goal, dtype=torch.float32, device=cuda),
+                       pred, params)
+
+    lib, handed = ip_fused._library(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def ip_solve_f32(self, *args):
+            handed.append(args[-2])
+            return lib.ip_solve_f32(*args)
+
+    monkeypatch.setattr(ip_fused, "_library", lambda: Spy())
+    profiling.clear_kept()
+    plain_run = solve_ocp_qp_fused(qp, iters=100, structure=UNICYCLE_QP_STRUCTURE)
+    assert handed == [None] and profiling.kept("k1.iters") == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        counted_run = solve_ocp_qp_fused(qp, iters=100, structure=UNICYCLE_QP_STRUCTURE)
+        ref = solve_ocp_qp_fused_ref(OcpQp(*[a.cpu() for a in qp]), iters=100,
+                                     structure=UNICYCLE_QP_STRUCTURE)
+    assert handed[1] is not None
+    got, want = [k.long().cpu() for k in profiling.kept("k1.iters")]
+    profiling.clear_kept()
+    for a, b in zip(plain_run, counted_run):
+        assert torch.equal(a, b)
+    assert int(got.min()) >= 0 and int(got.max()) <= 100
+    assert float((got == want).double().mean()) >= 0.95, (got, want)
+    assert int((got - want).abs().max()) <= 2, (got, want)
 
 
 def _lqrs(nb, N=20, seed=0):

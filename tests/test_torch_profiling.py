@@ -17,7 +17,7 @@ from doa_mpc_tpu_torch.config import WorldSpec
 from doa_mpc_tpu_torch.ops.ip_fused import GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE
 from doa_mpc_tpu_torch.ops.op_count import OpCounter
 from doa_mpc_tpu_torch.utils.profiling import (
-    F32_OPS_PER_S, HBM_BYTES_PER_S, Timer, bound, device_label, fused_hbm_bytes,
+    F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes,
     irk_step_bytes, speed_of_light_report, tick_flops, time_fn)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,15 +122,6 @@ def test_time_fn_chains_calls_on_the_cpu():
     assert dt >= 0 and len(calls) == 4            # one warm-up call, then 3
     assert calls[0] is x0 and all(not torch.equal(a, x0) for a in calls[1:])
     assert time_fn(lambda s: s, {"a": (torch.zeros(2),)}, reps=1) >= 0
-
-
-def test_timer_sections():
-    t = Timer()
-    with t.section("a"):
-        sum(range(1000))
-    with t.section("a"):
-        sum(range(1000))
-    assert t.sections["a"] > 0
 
 
 def test_device_label_off_the_card():
