@@ -28,7 +28,9 @@ from typing import NamedTuple
 
 import torch
 
-from doa_mpc_tpu_torch.ops.ocp_qp import IDXBX, OcpQp, normalize_cost
+from doa_mpc_tpu_torch.ops.ocp_qp import (
+    IDXBX, OcpQp, gather_idxbx, normalize_cost, scatter_idxbx,
+)
 from doa_mpc_tpu_torch.ops.riccati import riccati_factorize, riccati_solve
 from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused
 
@@ -46,20 +48,6 @@ class IpSolution(NamedTuple):
     mu: torch.Tensor        # (B,) duality measure of the last iteration
     kappa: torch.Tensor     # (B,) objective normalization used internally
     stat_res: torch.Tensor  # (B,) stationarity residual (normalized)
-
-
-def _sel(v):
-    """E v: the IDXBX = (0, 1, 3, 4) entries of (..., nx), by static slices."""
-    return torch.cat([v[..., 0:2], v[..., 3:5]], -1)
-
-
-def _sel_t(v, nx):
-    """E' v: scatter (..., nbx) back into (..., nx), zeros elsewhere."""
-    zero = torch.zeros_like(v[..., 0])
-    cols = [zero] * nx
-    for j, i in enumerate(IDXBX):
-        cols[i] = v[..., j]
-    return torch.stack(cols, -1)
 
 
 def _mv(A, x):
@@ -157,8 +145,8 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     l_h, l_s = 1.0 / t_h, 1.0 / s
     t_ul = torch.clamp_min(du - qp.lb_u, t_min)
     t_uu = torch.clamp_min(qp.ub_u - du, t_min)
-    t_xl = torch.clamp_min(_sel(dx) - qp.lb_x, t_min)
-    t_xu = torch.clamp_min(qp.ub_x - _sel(dx), t_min)
+    t_xl = torch.clamp_min(gather_idxbx(dx) - qp.lb_x, t_min)
+    t_xu = torch.clamp_min(qp.ub_x - gather_idxbx(dx), t_min)
     l_ul, l_uu, l_xl, l_xu = 1.0 / t_ul, 1.0 / t_uu, 1.0 / t_xl, 1.0 / t_xu
     nu_dyn = torch.zeros_like(qp.c)
     n_pairs = float(2 * N * nu + 2 * (N + 1) * nbx + 2 * (N + 1) * M)
@@ -171,8 +159,8 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         # ---- residuals ---------------------------------------------------------
         r_ul = (du - qp.lb_u) - t_ul
         r_uu = (qp.ub_u - du) - t_uu
-        r_xl = (_sel(dx) - qp.lb_x) - t_xl
-        r_xu = (qp.ub_x - _sel(dx)) - t_xu
+        r_xl = (gather_idxbx(dx) - qp.lb_x) - t_xl
+        r_xu = (qp.ub_x - gather_idxbx(dx)) - t_xu
         r_h = (qp.hval + _mv(qp.C, dx) + s) - t_h
         r_s = Zl * s + qp.zl - l_h - l_s
         dx_head, dx_tail = dx[:, :-1], dx[:, 1:]
@@ -180,7 +168,7 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         nu_prev = torch.cat([zero_x, nu_dyn], 1)                 # nu_{k-1}
         Atnu = torch.cat([_mv(A_t, nu_dyn), zero_x], 1)
         r_x = (_mv(qp.Q, dx) + qp.q + torch.cat([_mtv(qp.S, du), zero_x], 1)
-               + nu_prev - Atnu - _sel_t(l_xl - l_xu, nx) - _mv(C_t, l_h))
+               + nu_prev - Atnu - scatter_idxbx(l_xl - l_xu, nx) - _mv(C_t, l_h))
         r_u = (_mv(qp.R, du) + qp.r + _mv(qp.S, dx_head) - _mv(B_t, nu_dyn)
                - (l_ul - l_uu))
 
@@ -194,7 +182,7 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         s_h, s_s = sig(l_h, t_h), sig(l_s, s)
         zeta = Zl + s_h + s_s
         s_eff = s_h * (Zl + s_s) / zeta
-        Qbar = (qp.Q + torch.diag_embed(_sel_t(s_xl + s_xu, nx))
+        Qbar = (qp.Q + torch.diag_embed(scatter_idxbx(s_xl + s_xu, nx))
                 + (C_t * s_eff.unsqueeze(-2)) @ qp.C)
         Rbar = qp.R + torch.diag_embed(s_ul + s_uu)
         lqr = make_lqr(Qbar, Rbar)
@@ -205,8 +193,8 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         def directions(b_ul, b_uu, b_xl, b_xu, b_h, b_s):
             rho = -r_s + b_h + b_s - s_h * r_h
             beta_hat = b_h - s_h * r_h - s_h * rho / zeta
-            qbar = (r_x - _sel_t(b_xl - s_xl * r_xl, nx) + _sel_t(b_xu - s_xu * r_xu, nx)
-                    - _mv(C_t, beta_hat))
+            qbar = (r_x - scatter_idxbx(b_xl - s_xl * r_xl, nx)
+                    + scatter_idxbx(b_xu - s_xu * r_xu, nx) - _mv(C_t, beta_hat))
             rbar = r_u - (b_ul - s_ul * r_ul) + (b_uu - s_uu * r_uu)
             # the LQR's costate is the Newton increment of nu_dyn
             Ddx, Ddu, Dnu = lqr(qbar, rbar, -r_dyn)
@@ -214,7 +202,7 @@ def solve_ocp_qp(qp: OcpQp, iters: int = 50, tau: float = 0.99,
             ds = (rho - s_h * CDdx) / zeta
             dt_h = CDdx + ds + r_h
             dt_ul, dt_uu = Ddu + r_ul, -Ddu + r_uu
-            dt_xl, dt_xu = _sel(Ddx) + r_xl, -_sel(Ddx) + r_xu
+            dt_xl, dt_xu = gather_idxbx(Ddx) + r_xl, -gather_idxbx(Ddx) + r_xu
             return dict(dx=Ddx, du=Ddu, nu=Dnu, s=ds,
                         t_ul=dt_ul, l_ul=b_ul - s_ul * dt_ul,
                         t_uu=dt_uu, l_uu=b_uu - s_uu * dt_uu,

@@ -22,11 +22,22 @@ BIG_BOUND = 1e6
 IDXBX = (0, 1, 3, 4)
 
 
+# The two helpers below index IDXBX by Python ints, one column at a time: an
+# index list would be copied to the device on every call, and the host would
+# wait for the copy.
+
+def gather_idxbx(v: torch.Tensor) -> torch.Tensor:
+    """E v: the IDXBX entries of (..., nx) -> (..., nbx)."""
+    return torch.stack([v[..., i] for i in IDXBX], -1)
+
+
 def scatter_idxbx(vals: torch.Tensor, nx: int) -> torch.Tensor:
-    """(..., nbx) values on the IDXBX selection -> (..., nx), zeros elsewhere."""
-    out = torch.zeros(vals.shape[:-1] + (nx,), dtype=vals.dtype, device=vals.device)
-    out[..., list(IDXBX)] = vals
-    return out
+    """E' v: (..., nbx) values on the IDXBX selection -> (..., nx), zeros
+    elsewhere."""
+    cols = [torch.zeros_like(vals[..., 0])] * nx
+    for j, i in enumerate(IDXBX):
+        cols[i] = vals[..., j]
+    return torch.stack(cols, -1)
 
 
 class OcpQp(NamedTuple):

@@ -19,6 +19,7 @@ and noise to both.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -106,6 +107,14 @@ def obstacle_step(state: ObstacleState, spec, random_move: bool = True,
     return bounce_step(state, spec)
 
 
+@functools.lru_cache(maxsize=None)
+def _box(x_min, y_min, x_max, y_max, dtype, device):
+    """The box's corners (x_min, y_min) and (x_max, y_max) as tensors, copied
+    to each device once: a copy per call would make the host wait for it."""
+    return (torch.tensor([x_min, y_min], dtype=dtype, device=device),
+            torch.tensor([x_max, y_max], dtype=dtype, device=device))
+
+
 def predict_trajectory(state: ObstacleState, spec, n: int,
                        compat_pred_bug: bool = False) -> torch.Tensor:
     """Noise-free n-step position forecast -> (n+1, ..., M, 2).
@@ -121,8 +130,7 @@ def predict_trajectory(state: ObstacleState, spec, n: int,
     pos = state.pos
     t = (torch.arange(n + 1, dtype=pos.dtype, device=pos.device) * spec.dt).reshape(
         (n + 1,) + (1,) * pos.ndim)
-    lo = torch.tensor([spec.x_min, spec.y_min], dtype=pos.dtype, device=pos.device)
-    hi = torch.tensor([spec.x_max, spec.y_max], dtype=pos.dtype, device=pos.device)
+    lo, hi = _box(spec.x_min, spec.y_min, spec.x_max, spec.y_max, pos.dtype, pos.device)
     period = 2.0 * (hi - lo)
     free = (pos - lo)[None] + t * state.vel[None]
     y = torch.remainder(free, period)

@@ -32,7 +32,9 @@ from doa_mpc_tpu_torch.ops.integrators import make_integrator, make_linearizatio
 # instantiation that specializes on it
 from doa_mpc_tpu_torch.ops.ip_fused import UNICYCLE_QP_STRUCTURE  # noqa: F401
 from doa_mpc_tpu_torch.ops.ip_qp import solve_ocp_qp
-from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, IDXBX, OcpQp, scatter_idxbx
+from doa_mpc_tpu_torch.ops.ocp_qp import (
+    BIG_BOUND, IDXBX, OcpQp, gather_idxbx, scatter_idxbx,
+)
 from doa_mpc_tpu_torch.utils.profiling import span
 
 
@@ -134,7 +136,7 @@ class RtiController:
             c = phi - xg[:, 1:]
 
             sc = torch.full((n + 1,), dt if opts.cost_scale_dt else 1.0, **kw)
-            sc[-1] = 1.0
+            sc[-1:].fill_(1.0)        # `sc[-1] = 1.0` would copy from the host and sync
             w_q = scatter_idxbx(params.q_diag, nx)                 # (nx,) or (B, nx)
             w_qe = scatter_idxbx(params.qe_diag, nx)
             yref = torch.zeros(goal.shape[:-1] + (nx,), **kw)
@@ -162,7 +164,7 @@ class RtiController:
             ub_u = u_bound - ug
             lo = torch.stack(torch.broadcast_tensors(-params.x_bound, -params.x_bound,
                                                      -params.v_bound, -params.v_bound), -1)
-            xg_sel = xg[..., list(IDXBX)]
+            xg_sel = gather_idxbx(xg)
             lb_x = (rows(lo, 1, 1) - xg_sel).clone()
             ub_x = (-rows(lo, 1, 1) - xg_sel).clone()
             for k in (0, n):          # stage 0 is the x0 equality, stage N has no box
@@ -175,7 +177,7 @@ class RtiController:
             goal4 = torch.zeros(goal.shape[:-1] + (len(IDXBX),), **kw)
             goal4[..., 0], goal4[..., 1] = goal[..., 0], goal[..., 1]
             scale = params.slack_scale * (
-                torch.sum((x0[:, list(IDXBX)] - goal4) ** 2, dim=-1) + params.slack_offset)
+                torch.sum((gather_idxbx(x0) - goal4) ** 2, dim=-1) + params.slack_offset)
             stage_idx = torch.arange(n + 1, **kw)
             alpha = scale[:, None] * (n - stage_idx) / n          # alpha_N = 0
             slack_sc = sc if opts.slack_scale_dt else torch.ones_like(sc)

@@ -23,7 +23,8 @@ from doa_mpc_tpu_torch.ops.ocp_qp import BIG_BOUND, OcpQp
 from doa_mpc_tpu_torch.ops.riccati_fused import riccati_solve_fused, riccati_solve_fused_ref
 from doa_mpc_tpu_torch.sim.closed_loop import init_loop_state, make_batched_tick
 from doa_mpc_tpu_torch.sim.experiments import run_scenario_batch
-from doa_mpc_tpu_torch.sim.obstacles import predict_trajectory, robot_start_goal
+from doa_mpc_tpu_torch.sim.obstacles import (
+    ObstacleState, generate_obstacles, predict_trajectory, robot_start_goal)
 from doa_mpc_tpu_torch.solver.sqp_rti import make_rti_controller
 from doa_mpc_tpu_torch.utils import profiling
 
@@ -452,6 +453,42 @@ def test_irk_fused_tick_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     assert np.isfinite(gpu).all()
     np.testing.assert_array_equal(gpu[:, [0, 1, 4, 5]], cpu[:, [0, 1, 4, 5]])
     np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
+
+
+def test_batched_tick_on_cuda_never_waits_for_the_device(cuda):
+    """The campaign tick of 100 RANDOM + 100 EDGE rows (IRK, fused, 100 IP
+    iterations) makes no host copy and no other call that waits for the
+    device: ten ticks run under ``set_sync_debug_mode("error")``, which
+    raises at the first such call. So the host can enqueue the next tick
+    while K1 runs."""
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=100)
+    opts = SolverOptions(qp_iter=100, compat_pred_bug=True)
+    assert opts.integrator == "irk"
+    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device=cuda)
+    params = default_cost_params(spec, dtype=torch.float32, device=cuda)
+    start, goal = robot_start_goal(spec)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    worlds = [generate_obstacles(gen, spec, s, (100,), device=cuda) for s in ("RANDOM", "EDGE")]
+    obst = ObstacleState(*(torch.cat(a) for a in zip(*worlds)))
+    st = init_loop_state(ctrl, start, goal, batch_shape=(200,), obst=obst)
+    tick = make_batched_tick(ctrl, goal, params, backend="fused")
+
+    def noise():
+        return torch.randn((200, spec.n_obst, 2), generator=gen, device=cuda)
+
+    for _ in range(2):
+        st = tick(st, noise())
+    torch.cuda.synchronize()
+    before = solve_ocp_qp_fused.launches
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(10):
+            st = tick(st, noise())
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert solve_ocp_qp_fused.launches == before + 10
+    assert bool(torch.isfinite(st.x0).all())
 
 
 def test_status4_fused_irk_on_cuda_fires_and_goes_through_the_kernel(cuda, monkeypatch):
