@@ -9,6 +9,8 @@
 // mu_aff = sum(t l) + ap S1 + ad S2 + ap ad S3, centering (mu_aff / mu)^3,
 // the corrector solve, the fraction-to-boundary step min(1, tau min(v / -dv))
 // and the masked update (freeze when converged or non-finite, floor 1e-30).
+// A frozen scenario leaves the loop: every later iteration would recompute
+// the same mu and stat from an iterate that no longer moves.
 //
 // What bounds it on the H100: latency. Its bytes (each read or written
 // once) and its operations (csrc/op_count.cpp counts them from this code,
@@ -34,8 +36,9 @@
 //   entries of the symmetrized P: two tile syncs per stage), the
 //   back-substitution and the rollout of (dx, du) (one sync per stage each);
 //   the per-stage deltas of a rollout are then recomputed stage-parallel, as
-//   the plain version does. A frozen row skips its update uniformly across
-//   the tile. A team of 32 was built and measured too: slower at B = 4096
+//   the plain version does. A frozen row leaves the iteration loop, and the
+//   break is uniform across the tile (mu, stat, chk and the steps are tile
+//   reductions). A team of 32 was built and measured too: slower at B = 4096
 //   (PERF.md), so only 16 is built.
 // - State on chip for the whole solve. Each scenario's IP state (the t / l
 //   pairs, nu, dx, du, s), its work arrays (Qbar then P, K, L, Rbar, kff, the
@@ -55,12 +58,17 @@
 //   instantiation of the same body keeps them in a device-memory workspace
 //   the caller passes, one slice per tile of the grid, read and written
 //   through L1 / L2.
-// - Residency and waves: a block of two unicycle scenarios at N = 20, M = 5
-//   needs 26.7 KB plus the 1 KB the runtime reserves, so 8 blocks (16
-//   scenarios) fit an SM and B = 4096 takes 2 waves. The grid is cut to
-//   balanced waves (plan below), so no SM holds more blocks than those
-//   waves need: fewer blocks at once contend less for issue slots and L1.
-//   Registers are not the limit (ptxas figures in PERF.md).
+// - Residency and the hand-out: a block of two unicycle scenarios at N = 20,
+//   M = 5 needs 26.7 KB plus the 1 KB the runtime reserves, so 8 blocks (16
+//   scenarios) fit an SM, 2,112 tiles on the card. The grid is every
+//   resident tile, never more than B needs (plan below). Each tile solves
+//   the scenario of its own index first and then takes the next one from a
+//   counter in device memory that the launch zeroes on its stream. Rows
+//   differ widely in the iterations they need (a median of 6, a few at the
+//   cap of 100 on a campaign tick), so a fixed stride would make a launch
+//   of two passes last the sum of the two slowest rows of one tile; taken
+//   from the counter, a long row holds one tile while the others drain the
+//   rest. Registers are not the limit (ptxas figures in PERF.md).
 // - The structure at compile time: Generic reads the QP densely and is right
 //   for any QP; Unicycle (ops/ip_fused.UNICYCLE_QP_STRUCTURE: diagonal Q and
 //   R, S = 0, C only in columns 0 and 1, identity columns 0 and 1 of A,
@@ -143,6 +151,12 @@ struct DevTeam {
     tile().sync();
 #endif
   }
+  HD int bcast(int v) const {        // lane 0's v on every lane
+#ifdef __CUDA_ARCH__
+    v = tile().shfl(v, 0);
+#endif
+    return v;
+  }
   template <typename T> HD T sum(T v) const {
 #ifdef __CUDA_ARCH__
     auto g = tile();
@@ -173,6 +187,7 @@ struct HostTeam {
   HD int rank() const { return 0; }
   HD static constexpr int size() { return 1; }
   HD void sync() const {}
+  HD int bcast(int v) const { return v; }
   template <typename T> HD T sum(T v) const { return v; }
   template <typename T> HD T max(T v) const { return v; }
   template <typename T> HD T min(T v) const { return v; }
@@ -190,6 +205,9 @@ struct Params {
   int B, N, M, iters;
   T reg, tau, tol, stat_tol, sigma_max;
   int* iters_used;    // per row, the iterations that updated it; may be null
+  int* end;           // per row, the iterations its tile had run in this
+                      // launch when the row was done, the row's own included;
+                      // may be null
 };
 
 // Shared-memory floats per scenario (state, work arrays, A and B, scratch).
@@ -770,7 +788,9 @@ struct Solver {
     tm.sync();
   }
 
-  HD void solve() const {
+  // ran: the iterations the tile has run in this launch before this row;
+  // returns them with this row's
+  HD int solve(int ran) const {
     init();
     const T n_pairs = T(2 * N * NU + 2 * (N + 1) * NBX + 2 * (N + 1) * M);
     T mu = T(0), stat = T(0);
@@ -841,29 +861,30 @@ struct Solver {
 
       bool converged = (mu < p.tol) && (stat < p.stat_tol);
       bool finite = (vabs(chk) < T(3.0e38)) && (chk == chk) && (a_p == a_p) && (a_d == a_d);
-      // a frozen row keeps its iterate: the whole tile skips the update
-      if (!(converged || !finite)) {
-        ++used;
-        for (int k = tm.rank(); k <= N; k += tm.size()) {
-          T xk[NX], uk[NU] = {0, 0}, pn[NX];
-          load1(cx, NX, k, xk);
-          if (k < N) {
-            load0(cu, NU, k, uk);
-            for (int i = 0; i < NX; ++i) pn[i] = pxn(k, i);
-          }
-          visit(k, xk, uk, true, mu_t, [&](T* t, T dt, T* l, T dl, T*) {
-            *t = upd(*t, a_p, dt, true);
-            *l = upd(*l, a_d, dl, true);
-          });
-          for (int i = 0; i < NX; ++i) a1(dx, i, k) = upd(a1(dx, i, k), a_p, xk[i], false);
-          if (k < N) {
-            for (int i = 0; i < NU; ++i) a0(du, i, k) = upd(a0(du, i, k), a_p, uk[i], false);
-            for (int i = 0; i < NX; ++i) a0(nu, i, k) = upd(a0(nu, i, k), a_d, -pn[i], false);
-          }
+      // a frozen row keeps its iterate, so every later iteration would give
+      // the same mu and stat: the whole tile leaves the loop
+      if (converged || !finite) break;
+      ++used;
+      for (int k = tm.rank(); k <= N; k += tm.size()) {
+        T xk[NX], uk[NU] = {0, 0}, pn[NX];
+        load1(cx, NX, k, xk);
+        if (k < N) {
+          load0(cu, NU, k, uk);
+          for (int i = 0; i < NX; ++i) pn[i] = pxn(k, i);
+        }
+        visit(k, xk, uk, true, mu_t, [&](T* t, T dt, T* l, T dl, T*) {
+          *t = upd(*t, a_p, dt, true);
+          *l = upd(*l, a_d, dl, true);
+        });
+        for (int i = 0; i < NX; ++i) a1(dx, i, k) = upd(a1(dx, i, k), a_p, xk[i], false);
+        if (k < N) {
+          for (int i = 0; i < NU; ++i) a0(du, i, k) = upd(a0(du, i, k), a_p, uk[i], false);
+          for (int i = 0; i < NX; ++i) a0(nu, i, k) = upd(a0(nu, i, k), a_d, -pn[i], false);
         }
       }
       tm.sync();
     }
+    ran += used < p.iters ? used + 1 : used;     // the iteration that froze it too
     // outputs, batch-first; mu / stat of the last iteration's pre-update iterate
     for (int e = tm.rank(); e < N1 * NX; e += tm.size())
       p.dx[(size_t)b * N1 * NX + e] = a1(dx, e % NX, e / NX);
@@ -875,8 +896,10 @@ struct Solver {
       p.mu[b] = mu;
       p.stat[b] = stat;
       if (p.iters_used != nullptr) p.iters_used[b] = used;
+      if (p.end != nullptr) p.end[b] = ran;
     }
     tm.sync();              // the tile's arrays are free for its next scenario
+    return ran;
   }
 };
 
@@ -891,33 +914,38 @@ namespace ipk {
 template <typename T>
 void host_solve(const Params<T>& p, int structure) {
   std::vector<T> sm(smem_floats(p.N, p.M, structure == 1), (T)NAN);
+  int ran = 0;
   for (int b = 0; b < p.B; ++b) {
-    if (structure == 1) Solver<T, Unicycle, HostTeam>(p, b, sm.data(), HostTeam{}).solve();
-    else Solver<T, Generic, HostTeam>(p, b, sm.data(), HostTeam{}).solve();
+    if (structure == 1) ran = Solver<T, Unicycle, HostTeam>(p, b, sm.data(), HostTeam{}).solve(ran);
+    else ran = Solver<T, Generic, HostTeam>(p, b, sm.data(), HostTeam{}).solve(ran);
   }
 }
 }  // namespace ipk
 
 #else
 
-// One warp per block, two scenarios at a time; a block walks the scenarios
-// gridDim.x * 2 apart, so the grid can be sized to the waves the card needs
-// (plan below). Each tile's arrays are in dynamic shared memory (ON_CHIP) or
-// in its slice of the device-memory workspace `work`. Where they live is a
-// template parameter: a pointer that may be either makes every access a
-// generic one, which cost 77 more registers per thread and a third more
-// time on the card (PERF.md).
+// One warp per block, two tiles of one scenario each at a time. A tile
+// solves the scenario of its own index, then takes scenario tiles + n from
+// the n-th ticket of `next` (zeroed before the launch) until they run out.
+// Each tile's arrays are in dynamic shared memory (ON_CHIP) or in its slice
+// of the device-memory workspace `work`. Where they live is a template
+// parameter: a pointer that may be either makes every access a generic one,
+// which cost 77 more registers per thread and a third more time on the card
+// (PERF.md).
 template <class ST, bool ON_CHIP>
 __global__ void __launch_bounds__(ipk::kWarp)
-ip_solve_kernel(ipk::Params<float> p, int per, float* work) {
+ip_solve_kernel(ipk::Params<float> p, int per, float* work, int* next) {
   extern __shared__ float smem[];
   int tile = threadIdx.x / ipk::kTeam;
-  float* arrays = ON_CHIP ? smem + (size_t)tile * per
-                          : work + ((size_t)blockIdx.x * ipk::kPerBlock + tile) * per;
+  int tiles = gridDim.x * ipk::kPerBlock;
+  int own = blockIdx.x * ipk::kPerBlock + tile;
+  float* arrays = ON_CHIP ? smem + (size_t)tile * per : work + (size_t)own * per;
   ipk::DevTeam tm{(int)(threadIdx.x % ipk::kTeam)};
-  for (int b = blockIdx.x * ipk::kPerBlock + tile; b < p.B;
-       b += gridDim.x * ipk::kPerBlock)     // the whole tile moves together
-    ipk::Solver<float, ST, ipk::DevTeam>(p, b, arrays, tm).solve();
+  int ran = 0;                              // iterations this tile has run
+  for (int b = own; b < p.B;) {             // the whole tile moves together
+    ran = ipk::Solver<float, ST, ipk::DevTeam>(p, b, arrays, tm).solve(ran);
+    b = tiles + tm.bcast(tm.rank() == 0 ? atomicAdd(next, 1) : 0);
+  }
 }
 
 namespace {
@@ -926,11 +954,8 @@ namespace {
 // memory (bytes per block, the kernel's limit raised to it) when a block can
 // hold two scenarios' worth, else in a device-memory workspace (bytes 0);
 // the scenarios resident per SM that the occupancy API reports; and the
-// grid, cut to balanced waves. With R blocks resident per SM, the blocks
-// that B needs take waves = ceil(blocks / (SMs R)); a grid of
-// ceil(blocks / waves) blocks gives every block the same number of scenario
-// pairs, and its SMs hold fewer blocks than R at once, with less contention
-// for issue slots and L1.
+// grid: with R blocks resident per SM, min(ceil(B / 2), SMs R) blocks, so
+// every tile is resident at once and none is launched without a scenario.
 struct Plan {
   int per;
   size_t bytes;
@@ -964,26 +989,29 @@ cudaError_t plan(int B, int N, int M, Plan* pl) {
   if (e != cudaSuccess) return e;
   if (resident < 1) return cudaErrorInvalidConfiguration;
   long long blocks = (B + ipk::kPerBlock - 1) / ipk::kPerBlock;
-  long long waves = (blocks + (long long)sms * resident - 1) / ((long long)sms * resident);
   pl->resident = resident * ipk::kPerBlock;
-  pl->blocks = (blocks + waves - 1) / waves;
+  pl->blocks = blocks < (long long)sms * resident ? blocks : (long long)sms * resident;
   return cudaSuccess;
 }
 
 // cudaErrorInvalidValue when the arrays need more shared memory than a
-// block has and no workspace was given.
+// block has and no workspace was given, or when there is no counter. The
+// counter is zeroed on the launch's stream, so launches on other streams
+// keep theirs apart and the pair can be captured in a CUDA graph.
 template <class ST>
-int launch(const ipk::Params<float>& p, float* work, cudaStream_t stream) {
+int launch(const ipk::Params<float>& p, float* work, int* next, cudaStream_t stream) {
   Plan pl;
   cudaError_t e = plan<ST>(p.B, p.N, p.M, &pl);
   if (e != cudaSuccess) return (int)e;
+  if (next == nullptr || !(pl.on_chip || work != nullptr)) return (int)cudaErrorInvalidValue;
+  e = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
   if (pl.on_chip)
     ip_solve_kernel<ST, true><<<(unsigned)pl.blocks, ipk::kWarp, pl.bytes, stream>>>(
-        p, pl.per, nullptr);
-  else if (work != nullptr)
-    ip_solve_kernel<ST, false><<<(unsigned)pl.blocks, ipk::kWarp, 0, stream>>>(p, pl.per, work);
+        p, pl.per, nullptr, next);
   else
-    return (int)cudaErrorInvalidValue;
+    ip_solve_kernel<ST, false><<<(unsigned)pl.blocks, ipk::kWarp, 0, stream>>>(
+        p, pl.per, work, next);
   return (int)cudaGetLastError();
 }
 
@@ -996,8 +1024,9 @@ cudaError_t plan_for(int structure, int B, int N, int M, Plan* pl) {
 }  // namespace
 
 // structure: 0 generic, 1 unicycle. work: device memory of
-// ip_solve_workspace_floats floats, or null when that is 0. iters_used: B
-// ints, each row's count of iterations that updated it, or null.
+// ip_solve_workspace_floats floats, or null when that is 0. next: one int of
+// device memory for the hand-out counter, the launch's own. end and
+// iters_used: B ints each (Params), or null.
 extern "C" int ip_solve_f32(
     const float* A, const float* Bm, const float* c, const float* dx0,
     const float* Q, const float* q, const float* R, const float* r, const float* S,
@@ -1006,13 +1035,13 @@ extern "C" int ip_solve_f32(
     float* dx, float* du, float* s, float* mu, float* stat,
     int B, int N, int M, int iters,
     float reg, float tau, float tol, float stat_tol, float sigma_max,
-    int structure, float* work, int* iters_used, void* stream) {
+    int structure, float* work, int* next, int* end, int* iters_used, void* stream) {
   ipk::Params<float> p{A, Bm, c, dx0, Q, q, R, r, S, lbu, ubu, lbx, ubx, C, h, zl, Zl,
                        dx, du, s, mu, stat, B, N, M, iters,
-                       reg, tau, tol, stat_tol, sigma_max, iters_used};
+                       reg, tau, tol, stat_tol, sigma_max, iters_used, end};
   cudaStream_t st = (cudaStream_t)stream;
-  if (structure == 0) return launch<ipk::Generic>(p, work, st);
-  if (structure == 1) return launch<ipk::Unicycle>(p, work, st);
+  if (structure == 0) return launch<ipk::Generic>(p, work, next, st);
+  if (structure == 1) return launch<ipk::Unicycle>(p, work, next, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,11 +11,15 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   plain version. There is no fallback from the kernel to the plain version.
   The kernel reads the fields batch-first as they come and writes dx, du, s
   batch-first; ``structure`` picks its instantiation (generic or unicycle).
-  While a ``torch.profiler`` records, the kernel also writes each row's
-  count of the iterations that updated it, and the wrapper keeps it
-  (``utils.profiling.kept("k1.iters")``): a converged row keeps its iterate,
-  so that is the iterations the row needed. Otherwise the kernel gets a null
-  pointer and counts nothing.
+  A row leaves the iteration loop once it is frozen, and a tile takes its
+  next row from a counter the wrapper allocates for the launch.
+  While a ``torch.profiler`` records, the kernel also writes two counts per
+  row, and the wrapper keeps them (``utils.profiling.kept``):
+  ``k1.iters``, the iterations that updated the row (a converged row keeps
+  its iterate, so that is the iterations the row needed), and ``k1.end``,
+  the iterations its tile had run in the launch when the row was done, the
+  row's own included (the largest is the launch's length in iterations).
+  Otherwise the kernel gets null pointers and counts nothing.
 - :func:`solve_ocp_qp_fused_ref` is the plain PyTorch version. It follows the
   fused kernel's formulas, not ``ip_qp``'s: no ``sigma_retry``; the
   fraction-to-boundary step is ``min(1, tau * min ratio)`` with the 2.0
@@ -26,7 +30,9 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   ``P_N = Qbar(N)``; the Cholesky of Huu adds ``reg`` and floors at 1e-30.
   Stage-serial recursions are Python loops over stages; stage-local work is
   batched over scenarios and stages. It counts and keeps each row's
-  iterations as the kernel does.
+  iterations (``k1.iters``) as the kernel does. It takes every row through
+  all ``iters`` iterations, a frozen row unchanged, so it keeps no
+  ``k1.end``.
 """
 
 from __future__ import annotations
@@ -369,7 +375,7 @@ def build_kernel() -> str:
 def _library():
     lib = ctypes.CDLL(build_kernel())
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ip_solve_f32.argtypes = [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32, ptr, ptr, ptr]
+    lib.ip_solve_f32.argtypes = [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32] + [ptr] * 5
     lib.ip_solve_f32.restype = i32
     lib.ip_solve_workspace_floats.argtypes = [i32] * 4
     lib.ip_solve_workspace_floats.restype = ctypes.c_longlong
@@ -407,8 +413,9 @@ def occupancy(N: int, M: int, structure: QpStructure | None = None) -> int:
 def workspace_floats(nb: int, N: int, M: int, structure: QpStructure | None = None) -> int:
     """Floats of device memory a launch of ``nb`` scenarios needs: 0 when a
     block's shared memory holds its two scenarios' arrays (13-15 KB each at
-    N=20, M=5), else one slice per block of the grid, which the kernel then
-    uses in place of shared memory."""
+    N=20, M=5), else one slice per tile of the grid it launches (every
+    resident tile, at most one per scenario), which the kernel then uses in
+    place of shared memory."""
     n = _library().ip_solve_workspace_floats(structure_id(structure), nb, N, M)
     if n < 0:
         raise RuntimeError(f"ip_solve_workspace_floats failed (N={N}, M={M})")
@@ -470,8 +477,10 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     s = torch.empty((nb, N + 1, M), **f32)
     mu = torch.empty((nb,), **f32)
     stat = torch.empty((nb,), **f32)
-    # while a profiler records, the kernel writes each row's iterations
-    used = torch.empty((nb,), dtype=torch.int32, device=dev) if tracing() else None
+    i32 = dict(dtype=torch.int32, device=dev)
+    nxt = torch.empty((1,), **i32)    # the hand-out counter; the launch zeroes it
+    # while a profiler records, the kernel writes each row's counts
+    end, used = (torch.empty((nb,), **i32) for _ in range(2)) if tracing() else (None, None)
     lib = _library()
     with torch.cuda.device(dev):      # plan and launch on the card that holds the data
         n_work = workspace_floats(nb, N, M, structure)
@@ -479,8 +488,8 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ip_solve_f32(*[a.data_ptr() for a in ins + [dx, du, s, mu, stat]],
                               nb, N, M, int(iters), reg, tau, tol, stat_tol, sigma_max,
-                              sid, None if work is None else work.data_ptr(),
-                              None if used is None else used.data_ptr(), stream)
+                              sid, *[None if a is None else a.data_ptr()
+                                     for a in (work, nxt, end, used)], stream)
     if rc != 0:
         raise RuntimeError(
             f"ip_solve_f32 launch failed (N={N}, M={M}, {smem_bytes(N, M, structure)} B of "
@@ -489,6 +498,7 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     solve_ocp_qp_fused.launches += 1
     if used is not None:
         keep("k1.iters", used)
+        keep("k1.end", end)
     return IpSolution(dx=dx, du=du, s=s, mu=mu, kappa=kappa, stat_res=stat)
 
 

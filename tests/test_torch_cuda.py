@@ -210,6 +210,35 @@ def test_main_path_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
     np.testing.assert_allclose(gpu[:, [2, 3]], cpu[:, [2, 3]], rtol=0, atol=1e-2)
 
 
+def _campaign_qps(cuda, nb, ticks=5):
+    """One campaign tick's QPs (rk4, N=20, M=5, RANDOM rows after ``ticks``
+    ticks at 100 IP iterations), float32 on the card."""
+    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=100)
+    opts = SolverOptions(qp_iter=100, integrator="rk4")
+    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device=cuda)
+    params = default_cost_params(spec, dtype=torch.float32, device=cuda)
+    start, goal = robot_start_goal(spec)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    st = init_loop_state(ctrl, start, goal, "RANDOM", batch_shape=(nb,), generator=gen)
+    tick = make_batched_tick(ctrl, goal, params, backend="fused", generator=gen)
+    for _ in range(ticks):
+        st = tick(st)
+    pred = predict_trajectory(st.obst, spec, spec.n_solv).movedim(0, 1)
+    return ctrl.build_qp(st.rti, st.x0,
+                         torch.as_tensor(goal, dtype=torch.float32, device=cuda), pred, params)
+
+
+def _counted(qp, iters, structure):
+    """A launch while a profiler records: its solution and the kept
+    ``k1.iters`` and ``k1.end``, on the host."""
+    profiling.clear_kept()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sol = solve_ocp_qp_fused(qp, iters=iters, structure=structure)
+    (used,), (end,) = profiling.kept("k1.iters"), profiling.kept("k1.end")
+    profiling.clear_kept()
+    return sol, used.long().cpu(), end.long().cpu()
+
+
 def test_kernel_counts_the_iterations_its_plain_version_counts(cuda, monkeypatch):
     """K1's per-row iteration counts (written while a profiler records) on
     one campaign tick's QPs (rk4, B=256, N=20, M=5, 100 iterations, after 5
@@ -218,20 +247,7 @@ def test_kernel_counts_the_iterations_its_plain_version_counts(cuda, monkeypatch
     differently and a row near the tolerances may meet them an iteration
     apart. With no profiler recording the kernel gets a null pointer and
     nothing is kept; the count changes none of its outputs."""
-    spec = WorldSpec(tf=2.0, n_solv=20, n_obst=5, qp_iter=100)
-    opts = SolverOptions(qp_iter=100, integrator="rk4")
-    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device=cuda)
-    params = default_cost_params(spec, dtype=torch.float32, device=cuda)
-    start, goal = robot_start_goal(spec)
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    st = init_loop_state(ctrl, start, goal, "RANDOM", batch_shape=(256,), generator=gen)
-    tick = make_batched_tick(ctrl, goal, params, backend="fused", generator=gen)
-    for _ in range(5):
-        st = tick(st)
-    pred = predict_trajectory(st.obst, spec, spec.n_solv).movedim(0, 1)
-    qp = ctrl.build_qp(st.rti, st.x0, torch.as_tensor(goal, dtype=torch.float32, device=cuda),
-                       pred, params)
-
+    qp = _campaign_qps(cuda, 256)
     lib, handed = ip_fused._library(), []
 
     class Spy:
@@ -258,6 +274,65 @@ def test_kernel_counts_the_iterations_its_plain_version_counts(cuda, monkeypatch
     assert int(got.min()) >= 0 and int(got.max()) <= 100
     assert float((got == want).double().mean()) >= 0.95, (got, want)
     assert int((got - want).abs().max()) <= 2, (got, want)
+
+
+def test_kernel_leaves_the_loop_once_a_row_is_frozen(cuda):
+    """In one pass (one row per tile) a row's tile runs the iterations that
+    updated the row and the one that froze it, and no more: ``end`` is
+    min(used + 1, iters) on every row of a campaign tick at 100 iterations,
+    where rows need different numbers of iterations."""
+    qp = _campaign_qps(cuda, 256)
+    _, used, end = _counted(qp, 100, UNICYCLE_QP_STRUCTURE)
+    assert torch.equal(end, torch.clamp_max(used + 1, 100))
+    assert int(end.min()) < int(end.max()), end
+
+
+def _mixed_qps(cuda, nb, N, structure):
+    """``nb`` random QPs with the fixture's hard rows in every 97th place
+    (N=20, M=5 only)."""
+    qp = _qps(nb, N=N, seed=4, structure=structure)
+    if N == 20:
+        d = np.load(FIXTURE)
+        hard = OcpQp(*[torch.as_tensor(d[f]) for f in OcpQp._fields])
+        at = torch.arange(0, nb, 97)
+        qp = OcpQp(*[a.index_put((at,), h[torch.arange(len(at)) % h.shape[0]])
+                     for a, h in zip(qp, hard)])
+    return _to(qp, cuda)
+
+
+@STRUCTURES
+@pytest.mark.parametrize("N,iters", [(20, 100), (200, 10)], ids=["on_chip", "workspace"])
+def test_kernel_rows_do_not_depend_on_the_hand_out(cuda, structure, N, iters):
+    """At three times the tiles the card holds at once, tiles take their
+    later rows from the launch's counter, in an order that depends on how
+    long each row runs. Every output of every row is bit for bit the same
+    when the rows are launched in a permuted order and when a sample of
+    rows (the hard ones among them) is launched alone, from shared memory
+    (N=20) and from the device-memory workspace (N=200)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles = sms * ip_fused.occupancy(N, 5, structure)
+    nb = 3 * tiles
+    qp = _mixed_qps(cuda, nb, N, structure)
+    if N == 200:
+        assert ip_fused.workspace_floats(nb, N, 5, structure) == tiles * (
+            ip_fused.smem_bytes(N, 5, structure) // 8)
+    sol, used, end = _counted(qp, iters, structure)
+    run = torch.clamp_max(used + 1, iters)
+    assert bool((end >= run).all()) and bool((end > run).any())   # tiles took more rows
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(0)).to(cuda)
+    shuffled = solve_ocp_qp_fused(OcpQp(*[a[perm] for a in qp]), iters=iters,
+                                  structure=structure)
+    inv = torch.argsort(perm)
+    for a, b in zip(sol, shuffled):
+        assert torch.equal(a, b[inv])
+    sample = sorted({0, 97, 194, 1, nb // 2, nb - 1, int(torch.argmax(used))})
+    for b in sample:
+        alone = solve_ocp_qp_fused(OcpQp(*[a[b:b + 1] for a in qp]), iters=iters,
+                                   structure=structure)
+        for x, y in zip(sol, alone):
+            assert torch.equal(x[b:b + 1], y), b
+    for a in sol:
+        assert bool(torch.isfinite(a).all())
 
 
 def _lqrs(nb, N=20, seed=0):

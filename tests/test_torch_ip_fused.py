@@ -84,7 +84,15 @@ def _numpy_controller_qps(n=4, N=6, M=3):
     return OcpQp(*[np.asarray(a) for a in qp])
 
 
-QP_SETS = {"random": _numpy_random_qps, "controller": _numpy_controller_qps}
+def _numpy_hard_qps():
+    """The fixture's controller QPs that once drove float32 solves
+    non-finite (N=20, M=5), as float64."""
+    d = np.load(FIXTURE)
+    return OcpQp(*[d[f].astype(np.float64) for f in OcpQp._fields])
+
+
+QP_SETS = {"random": _numpy_random_qps, "controller": _numpy_controller_qps,
+           "hard": _numpy_hard_qps}
 
 
 def _compare(kind, dtype, iters, atol, mu_rtol=None):
@@ -179,11 +187,12 @@ _HARNESS = r"""
 #include "ip_solve.cu"
 extern "C" void host_solve_f64(const double** in, double** out, int B, int N, int M,
                                int iters, double reg, double tau, double tol,
-                               double stat_tol, double sigma_max, int structure) {
+                               double stat_tol, double sigma_max, int structure,
+                               int* used, int* end) {
   ipk::Params<double> p{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
                         in[9], in[10], in[11], in[12], in[13], in[14], in[15], in[16],
                         out[0], out[1], out[2], out[3], out[4], B, N, M, iters,
-                        reg, tau, tol, stat_tol, sigma_max};
+                        reg, tau, tol, stat_tol, sigma_max, used, end};
   ipk::host_solve<double>(p, structure);
 }
 template void ipk::host_solve<float>(const ipk::Params<float>&, int);
@@ -204,8 +213,34 @@ def host_kernel(tmp_path_factory):
                     "-o", str(lib), str(src)], check=True, timeout=120)
     so = ctypes.CDLL(str(lib))
     so.host_solve_f64.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                                  + [ctypes.c_double] * 5 + [ctypes.c_int])
+                                  + [ctypes.c_double] * 5 + [ctypes.c_int]
+                                  + [ctypes.c_void_p] * 2)
     return so
+
+
+def _host_solve(host_kernel, qp, iters, structure, used=None, end=None):
+    """The kernel's body on the host in float64 (one lane walks the rows in
+    order): dx, du, s, mu, stat, NaN where it wrote nothing."""
+    tol, reg, sigma_max, stat_tol = ip_fused._constants(torch.float64, None, None)
+    qpn, _ = normalize_cost(qp)
+    nb, N, M = qp.A.shape[0], qp.A.shape[1], qp.C.shape[-2]
+    ins = [a.contiguous() for a in qpn]
+    f64 = dict(dtype=torch.float64)
+    outs = [torch.full((nb, N + 1, 5), np.nan, **f64), torch.full((nb, N, 2), np.nan, **f64),
+            torch.full((nb, N + 1, M), np.nan, **f64), torch.full((nb,), np.nan, **f64),
+            torch.full((nb,), np.nan, **f64)]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    host_kernel.host_solve_f64(ptrs(ins), ptrs(outs), nb, N, M, iters, reg, 0.99, tol,
+                               stat_tol, sigma_max, ip_fused.structure_id(structure),
+                               *[None if a is None else a.data_ptr() for a in (used, end)])
+    return outs
+
+
+def _assert_host_matches_plain(outs, ref, atol=1e-10, mu_rtol=1e-9):
+    for got, want in zip(outs[:3], (ref.dx, ref.du, ref.s)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=atol)
+    np.testing.assert_allclose(outs[3].numpy(), ref.mu.numpy(), rtol=mu_rtol)
+    np.testing.assert_allclose(outs[4].numpy(), ref.stat_res.numpy(), rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("structure,kind", [
@@ -218,22 +253,34 @@ def test_kernel_source_on_host_matches_plain_f64(host_kernel, structure, kind, i
     plain version in float64, batch-first in and out, for each instantiation
     the QPs satisfy (the controller's QPs carry the unicycle structure)."""
     qp = ocp_qp_from_numpy(QP_SETS[kind](), "cpu", torch.float64)
-    tol, reg, sigma_max, stat_tol = ip_fused._constants(torch.float64, None, None)
-    qpn, _ = normalize_cost(qp)
-    nb, N, M = qp.A.shape[0], qp.A.shape[1], qp.C.shape[-2]
-    ins = [a.contiguous() for a in qpn]
-    f64 = dict(dtype=torch.float64)
-    outs = [torch.full((nb, N + 1, 5), np.nan, **f64), torch.full((nb, N, 2), np.nan, **f64),
-            torch.full((nb, N + 1, M), np.nan, **f64), torch.full((nb,), np.nan, **f64),
-            torch.full((nb,), np.nan, **f64)]
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    host_kernel.host_solve_f64(ptrs(ins), ptrs(outs), nb, N, M, iters, reg, 0.99, tol,
-                               stat_tol, sigma_max, ip_fused.structure_id(structure))
-    ref = solve_ocp_qp_fused_ref(qp, iters=iters)
-    for got, want in zip(outs[:3], (ref.dx, ref.du, ref.s)):
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-10)
-    np.testing.assert_allclose(outs[3].numpy(), ref.mu.numpy(), rtol=1e-9)
-    np.testing.assert_allclose(outs[4].numpy(), ref.stat_res.numpy(), rtol=0, atol=1e-10)
+    outs = _host_solve(host_kernel, qp, iters, structure)
+    _assert_host_matches_plain(outs, solve_ocp_qp_fused_ref(qp, iters=iters))
+
+
+@pytest.mark.parametrize("structure", [GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE],
+                         ids=["generic", "unicycle"])
+@pytest.mark.parametrize("kind", ["controller", "hard"])
+def test_kernel_source_on_host_leaves_the_loop_once_a_row_is_frozen(host_kernel, kind,
+                                                                   structure):
+    """At 100 iterations a row runs the iterations that updated it and the
+    one that froze it, and no more: the host's one lane walks the rows in
+    order, so row b's run is end[b] - end[b - 1]. Its outputs are still
+    those of the plain version, which takes every row through all 100
+    (``tests/test_torch_tracing.py`` holds the body's counts of updating
+    iterations to the plain version's). The hard rows are ill-conditioned:
+    from 50 iterations on, the body and the plain version part there by up
+    to 1.5e-8 in dx and 2e-7 of mu in float64, and so did the body that took
+    every row through all the iterations (its outputs are this one's, bit
+    for bit); so they are held to 1e-7 and 1e-6 of mu."""
+    qp = ocp_qp_from_numpy(QP_SETS[kind](), "cpu", torch.float64)
+    nb, iters = qp.A.shape[0], 100
+    used, end = (torch.full((nb,), -1, dtype=torch.int32) for _ in range(2))
+    outs = _host_solve(host_kernel, qp, iters, structure, used, end)
+    _assert_host_matches_plain(outs, solve_ocp_qp_fused_ref(qp, iters=iters),
+                               **(dict(atol=1e-7, mu_rtol=1e-6) if kind == "hard" else {}))
+    run = torch.diff(end, prepend=torch.zeros(1, dtype=torch.int32))
+    assert torch.equal(run, torch.clamp_max(used + 1, iters))
+    assert int(used.max()) < iters       # every row froze before the cap
 
 
 @pytest.fixture(scope="module")
