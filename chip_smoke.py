@@ -59,6 +59,7 @@ outside a checkout of the repository. Long diagnostics go to
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -325,8 +326,9 @@ def main():
 
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(timed_build, (ip_fused.build_kernel, riccati_fused.build_kernel,
-                                             integrators.build_kernel, OpCounter)))
+        builds = list(pool.map(timed_build, [
+            *(functools.partial(cuda_build.build, m.KERNEL_SOURCE)
+              for m in (ip_fused, riccati_fused, integrators)), OpCounter]))
     ip_fused._library()
     riccati_fused._library()
     integrators._library()
@@ -352,28 +354,28 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k3_plans = {(dt_, sens_): integrators.plan(4, sens_, dt_)
                 for dt_ in (torch.float32, torch.float64) for sens_ in (True, False)}
-    _check(all(p_["blocks_per_sm"] > 0 for p_ in k3_plans.values()),
+    _check(all(p_.blocks_per_sm > 0 for p_ in k3_plans.values()),
            f"K3: occupancy API reports {k3_plans}")
     print(f"phase 2 K3 (s=4; no spill in any instantiation): "
           + "; ".join(f"{str(dt_).removeprefix('torch.')} {'with' if sens_ else 'without'} D: "
-                      f"team of {p_['team']} lanes, {p_['rows_per_block']} rows per one-warp "
-                      f"block, {p_['smem_bytes']} B of shared memory per block, "
-                      f"{p_['blocks_per_sm']} blocks ({p_['blocks_per_sm'] * p_['rows_per_block']}"
+                      f"team of {p_.team} lanes, {p_.rows_per_block} rows per one-warp "
+                      f"block, {p_.smem_bytes} B of shared memory per block, "
+                      f"{p_.blocks_per_sm} blocks ({p_.blocks_per_sm * p_.rows_per_block}"
                       f" rows) resident per SM" for (dt_, sens_), p_ in k3_plans.items()),
           flush=True)
     for sname, st in STRUCTURES.items():
-        per_sm = ip_fused.occupancy(N, M, st)
+        k1_plan = ip_fused.plan(B_MAIN, N, M, st)
+        per_sm = k1_plan.resident
         _check(per_sm > 0, f"K1 {sname}: occupancy API reports {per_sm}")
-        _check(ip_fused.workspace_floats(B_MAIN, N, M, st) == 0,
-               f"K1 {sname}: N={N}, M={M} does not fit shared memory")
+        _check(k1_plan.work == 0, f"K1 {sname}: N={N}, M={M} does not fit shared memory")
         print(f"phase 2 K1 {sname} (team of 16 lanes): {ip_fused.smem_bytes(N, M, st) // 2} B "
               f"of shared memory per scenario, {per_sm} scenarios resident per SM (occupancy "
               f"API), {-(-B_MAIN // (per_sm * sms))} wave(s) at B={B_MAIN} (N={N}, M={M})",
               flush=True)
-    k2_per_sm = riccati_fused.occupancy(N, torch.float32)
+    k2_plan = riccati_fused.plan(B_MAIN, N, torch.float32)
+    k2_per_sm = k2_plan.resident
     _check(k2_per_sm > 0, f"K2: occupancy API reports {k2_per_sm}")
-    _check(riccati_fused.workspace_values(B_MAIN, N, torch.float32) == 0,
-           f"K2: N={N} does not fit shared memory")
+    _check(k2_plan.work == 0, f"K2: N={N} does not fit shared memory")
     print(f"phase 2 K2 f32 (team of 16 lanes): "
           f"{riccati_fused.smem_bytes(N, torch.float32) // 2} B of shared memory per "
           f"scenario (stage ring, exchange buffers, scratch), {k2_per_sm} scenarios resident "
@@ -664,7 +666,7 @@ def main():
                                 riccati_solve_fused_ref(*lqr64_1))]
     _check(all(np.isfinite(ek) and ek <= 2 * ep for ek, ep in e32_1),
            f"K2 f32 at B=1 further from the f64 plain output than 2x plain f32: {e32_1}")
-    k2_work = {dt: riccati_fused.workspace_values(B_MAIN, N, dt)
+    k2_work = {dt: riccati_fused.plan(B_MAIN, N, dt).work
                for dt in (torch.float32, torch.float64)}
 
     # (b) real build_qp QPs: the riccati backend against the torch backend
@@ -826,8 +828,9 @@ def main():
         summary10 += evaluate.summarize(os.path.join(out10, sub))
     with open(os.path.join(out10, "phase10_runs.json"), "w") as f:
         json.dump({"runs": runs10, "summarize": summary10}, f, indent=1)
-    smem30, per_sm30 = ip_fused.smem_bytes(30, 30, uni) // 2, ip_fused.occupancy(30, 30, uni)
-    _check(per_sm30 > 0 and ip_fused.workspace_floats(100, 30, 30, uni) == 0,
+    plan30 = ip_fused.plan(100, 30, 30, uni)
+    smem30, per_sm30 = ip_fused.smem_bytes(30, 30, uni) // 2, plan30.resident
+    _check(per_sm30 > 0 and plan30.work == 0,
            "K1 at N=30, M=30 does not run from shared memory")
     print(f"phase 10 sweep corners (100 seeds x {TICKS10} ticks, IRK, fused, f32, RANDOM and "
           f"EDGE; K1 launches {TICKS10}, K3 {TICKS10 * K3_PER_TICK} per run): "

@@ -950,22 +950,19 @@ ip_solve_kernel(ipk::Params<float> p, int per, float* work, int* next) {
 
 namespace {
 
-// How a launch runs: per floats of arrays per scenario, in dynamic shared
-// memory (bytes per block, the kernel's limit raised to it) when a block can
-// hold two scenarios' worth, else in a device-memory workspace (bytes 0);
-// the scenarios resident per SM that the occupancy API reports; and the
-// grid: with R blocks resident per SM, min(ceil(B / 2), SMs R) blocks, so
-// every tile is resident at once and none is launched without a scenario.
-struct Plan {
-  int per;
-  size_t bytes;
-  bool on_chip;
-  int resident;
-  long long blocks;
-};
-
+// How launches of B scenarios run on the current device, into out[5]: the
+// grid's blocks; the dynamic shared memory of a block; the floats of one
+// scenario's arrays; the floats of device-memory workspace; the scenarios
+// resident per SM that the occupancy API reports. The arrays live in shared
+// memory when a block can hold two scenarios' worth (workspace 0), else in
+// the workspace, one slice per tile (shared memory 0). The grid: with R
+// blocks resident per SM, min(ceil(B / 2), SMs R) blocks, so every tile is
+// resident at once and none is launched without a scenario. The on-chip
+// kernel's shared-memory limit on the current device is raised to what the
+// plan needs, never lowered, so a plan stays valid once made: the wrapper
+// makes it once per device, structure, B, N and M.
 template <class ST>
-cudaError_t plan(int B, int N, int M, Plan* pl) {
+cudaError_t plan(int B, int N, int M, long long* out) {
   long long f = ipk::smem_floats(N, M, ST::kUni);
   if (f > (1LL << 30)) return cudaErrorInvalidValue;
   int dev = 0, optin = 0, sms = 0, resident = 0;
@@ -974,59 +971,71 @@ cudaError_t plan(int B, int N, int M, Plan* pl) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  size_t bytes = (size_t)f * sizeof(float) * ipk::kPerBlock;
-  pl->per = (int)f;
-  pl->on_chip = bytes <= (size_t)optin;
-  pl->bytes = pl->on_chip ? bytes : 0;
-  if (pl->on_chip)
-    e = cudaFuncSetAttribute(ip_solve_kernel<ST, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  size_t chip = (size_t)f * sizeof(float) * ipk::kPerBlock;
+  bool on_chip = chip <= (size_t)optin;
+  size_t bytes = on_chip ? chip : 0;
+  if (on_chip) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, ip_solve_kernel<ST, true>);
+    if (e == cudaSuccess && (size_t)fa.maxDynamicSharedSizeBytes < bytes)
+      e = cudaFuncSetAttribute(ip_solve_kernel<ST, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
   if (e == cudaSuccess)
-    e = pl->on_chip ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          &resident, ip_solve_kernel<ST, true>, ipk::kWarp, pl->bytes)
-                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          &resident, ip_solve_kernel<ST, false>, ipk::kWarp, 0);
+    e = on_chip ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &resident, ip_solve_kernel<ST, true>, ipk::kWarp, bytes)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &resident, ip_solve_kernel<ST, false>, ipk::kWarp, 0);
   if (e != cudaSuccess) return e;
   if (resident < 1) return cudaErrorInvalidConfiguration;
   long long blocks = (B + ipk::kPerBlock - 1) / ipk::kPerBlock;
-  pl->resident = resident * ipk::kPerBlock;
-  pl->blocks = blocks < (long long)sms * resident ? blocks : (long long)sms * resident;
+  if (blocks > (long long)sms * resident) blocks = (long long)sms * resident;
+  out[0] = blocks;
+  out[1] = (long long)bytes;
+  out[2] = f;
+  out[3] = on_chip ? 0 : blocks * ipk::kPerBlock * f;
+  out[4] = resident * ipk::kPerBlock;
   return cudaSuccess;
 }
 
-// cudaErrorInvalidValue when the arrays need more shared memory than a
-// block has and no workspace was given, or when there is no counter. The
-// counter is zeroed on the launch's stream, so launches on other streams
-// keep theirs apart and the pair can be captured in a CUDA graph.
+// A launch on a plan: the on-chip instantiation when work is null, else the
+// device-memory one. cudaErrorInvalidValue when there is no counter, or no
+// workspace and less shared memory than two scenarios' arrays. The counter
+// is zeroed on the launch's stream, so launches on other streams keep
+// theirs apart and the pair can be captured in a CUDA graph.
 template <class ST>
-int launch(const ipk::Params<float>& p, float* work, int* next, cudaStream_t stream) {
-  Plan pl;
-  cudaError_t e = plan<ST>(p.B, p.N, p.M, &pl);
+int launch(const ipk::Params<float>& p, long long blocks, long long bytes, float* work,
+           int* next, cudaStream_t stream) {
+  int per = (int)ipk::smem_floats(p.N, p.M, ST::kUni);
+  long long chip = (long long)per * (long long)sizeof(float) * ipk::kPerBlock;
+  if (next == nullptr || (work == nullptr && bytes < chip)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(next, 0, sizeof(int), stream);
   if (e != cudaSuccess) return (int)e;
-  if (next == nullptr || !(pl.on_chip || work != nullptr)) return (int)cudaErrorInvalidValue;
-  e = cudaMemsetAsync(next, 0, sizeof(int), stream);
-  if (e != cudaSuccess) return (int)e;
-  if (pl.on_chip)
-    ip_solve_kernel<ST, true><<<(unsigned)pl.blocks, ipk::kWarp, pl.bytes, stream>>>(
-        p, pl.per, nullptr, next);
+  if (work == nullptr)
+    ip_solve_kernel<ST, true><<<(unsigned)blocks, ipk::kWarp, (size_t)bytes, stream>>>(
+        p, per, nullptr, next);
   else
-    ip_solve_kernel<ST, false><<<(unsigned)pl.blocks, ipk::kWarp, 0, stream>>>(
-        p, pl.per, work, next);
+    ip_solve_kernel<ST, false><<<(unsigned)blocks, ipk::kWarp, (size_t)bytes, stream>>>(
+        p, per, work, next);
   return (int)cudaGetLastError();
-}
-
-cudaError_t plan_for(int structure, int B, int N, int M, Plan* pl) {
-  if (structure == 0) return plan<ipk::Generic>(B, N, M, pl);
-  if (structure == 1) return plan<ipk::Unicycle>(B, N, M, pl);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// structure: 0 generic, 1 unicycle. work: device memory of
-// ip_solve_workspace_floats floats, or null when that is 0. next: one int of
-// device memory for the hand-out counter, the launch's own. end and
-// iters_used: B ints each (Params), or null.
+// The plan of a launch of B scenarios, see plan(): out[0] blocks, out[1]
+// shared-memory bytes per block, out[2] floats per scenario, out[3]
+// workspace floats, out[4] scenarios resident per SM. structure: 0 generic,
+// 1 unicycle. Returns a cudaError_t.
+extern "C" int ip_solve_plan(int structure, int B, int N, int M, long long* out) {
+  if (structure == 0) return (int)plan<ipk::Generic>(B, N, M, out);
+  if (structure == 1) return (int)plan<ipk::Unicycle>(B, N, M, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// blocks, bytes: out[0] and out[1] of ip_solve_plan for this structure, B,
+// N and M; work: device memory of its out[3] floats, or null when that is 0.
+// next: one int of device memory for the hand-out counter, the launch's own.
+// end and iters_used: B ints each (Params), or null.
 extern "C" int ip_solve_f32(
     const float* A, const float* Bm, const float* c, const float* dx0,
     const float* Q, const float* q, const float* R, const float* r, const float* S,
@@ -1035,29 +1044,15 @@ extern "C" int ip_solve_f32(
     float* dx, float* du, float* s, float* mu, float* stat,
     int B, int N, int M, int iters,
     float reg, float tau, float tol, float stat_tol, float sigma_max,
-    int structure, float* work, int* next, int* end, int* iters_used, void* stream) {
+    int structure, long long blocks, long long bytes, float* work, int* next, int* end,
+    int* iters_used, void* stream) {
   ipk::Params<float> p{A, Bm, c, dx0, Q, q, R, r, S, lbu, ubu, lbx, ubx, C, h, zl, Zl,
                        dx, du, s, mu, stat, B, N, M, iters,
                        reg, tau, tol, stat_tol, sigma_max, iters_used, end};
   cudaStream_t st = (cudaStream_t)stream;
-  if (structure == 0) return launch<ipk::Generic>(p, work, next, st);
-  if (structure == 1) return launch<ipk::Unicycle>(p, work, next, st);
+  if (structure == 0) return launch<ipk::Generic>(p, blocks, bytes, work, next, st);
+  if (structure == 1) return launch<ipk::Unicycle>(p, blocks, bytes, work, next, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// Floats of device-memory workspace a launch of B scenarios needs: 0 when
-// their arrays fit shared memory (-1 on error).
-extern "C" long long ip_solve_workspace_floats(int structure, int B, int N, int M) {
-  Plan pl;
-  if (plan_for(structure, B, N, M, &pl) != cudaSuccess) return -1;
-  return pl.on_chip ? 0 : pl.blocks * ipk::kPerBlock * (long long)pl.per;
-}
-
-// Scenarios resident per SM, as the occupancy API reports them (-1 on error).
-extern "C" int ip_solve_occupancy(int structure, int N, int M) {
-  Plan pl;
-  if (plan_for(structure, 1, N, M, &pl) != cudaSuccess) return -1;
-  return pl.resident;
 }
 
 // Shared memory that one block's two scenarios need on chip.

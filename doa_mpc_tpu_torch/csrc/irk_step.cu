@@ -508,11 +508,6 @@ template <typename T, int S, bool SENS>
 int launch(const void* x, const void* u, const void* A, const void* b, double h,
            int newton_iter, int num_steps, void* phi, void* D, long long rows, void* stream) {
   constexpr size_t smem = smem_bytes<T, S, SENS>();
-  if (smem > 48 * 1024) {              // above the default limit only (a team under 4)
-    const cudaError_t rc = cudaFuncSetAttribute(
-        irk_step_kernel<T, S, SENS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
   const long long blocks = (rows + kRows - 1) / kRows;
   irk_step_kernel<T, S, SENS><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)u, (const T*)A, (const T*)b, h, newton_iter, num_steps, (T*)phi,
@@ -541,7 +536,10 @@ int dispatch(int s, const void* x, const void* u, const void* A, const void* b, 
   return dispatch_s<T, false>(s, x, u, A, b, h, newton_iter, num_steps, phi, D, rows, stream);
 }
 
-// shared memory per block and blocks resident per SM (occupancy API)
+// shared memory per block and blocks resident per SM (occupancy API); the
+// instantiation's shared-memory limit is set to what it needs, which its
+// launches rely on above the default 48 KB (a team under 4): the wrapper
+// makes the plan once per device and instantiation, before its first launch
 template <typename T, bool SENS>
 int plan_s(int s, size_t* smem, int* per_sm) {
   switch (s) {
@@ -613,7 +611,8 @@ extern "C" int irk_step_f64(const void* x, const void* u, const void* A, const v
 }
 
 // shared memory per block (bytes) and blocks resident per SM of the
-// instantiation for (s, sensitivities, f64); the team and rows per block
+// instantiation for (s, sensitivities, f64), see plan_s; the team and rows
+// per block
 extern "C" int irk_step_plan(int s, int sens, int f64, long long* smem, int* per_sm) {
   size_t bytes = 0;
   const int rc = f64 ? (sens ? irks::plan_s<double, true>(s, &bytes, per_sm)

@@ -48,8 +48,9 @@
 //   instantiation keeps it in a device-memory workspace the wrapper
 //   allocates, one slice per tile of the grid. Where it lives is a template
 //   parameter: a pointer that may be either makes every access generic.
-// - Residency and waves: the grid is cut to balanced waves, as in
-//   ip_solve.cu, so no SM holds more blocks than the waves need.
+// - Residency and waves: the grid is cut to balanced waves (plan below), so
+//   every block walks the same number of scenarios and no SM holds more
+//   blocks than the waves need.
 // - Batch-first I/O: the inputs are read as the solver holds them, one
 //   scenario's field one contiguous run; dx, du and nu are written so.
 //
@@ -458,16 +459,17 @@ __global__ void __launch_bounds__(rck::kWarp) riccati_kernel(rck::Params<T> p, T
 
 namespace {
 
-// How a launch of B scenarios runs, into out[4]: the grid's blocks, the
+// How a launch of B scenarios runs, into out[5]: the grid's blocks, the
 // shared memory of a block (its scenarios' ring and exchange buffers, and
-// their scratch when on chip), the values of device-memory workspace (0 when
-// the scratch is on chip) and the scenarios resident per SM that the
-// occupancy API reports. The grid is cut to balanced waves: with R blocks
-// resident per SM the blocks B needs take waves = ceil(blocks / (SMs R)),
-// and a grid of ceil(blocks / waves) blocks gives every block the same
-// number of scenarios. The on-chip kernel's shared-memory limit on the
-// current device is raised to what the plan needs, never lowered, so a plan
-// stays valid once made: the wrapper makes it once per device, dtype, B and N.
+// their scratch when on chip), the values of one scenario's scratch, the
+// values of device-memory workspace (0 when the scratch is on chip) and the
+// scenarios resident per SM that the occupancy API reports. The grid is cut
+// to balanced waves: with R blocks resident per SM the blocks B needs take
+// waves = ceil(blocks / (SMs R)), and a grid of ceil(blocks / waves) blocks
+// gives every block the same number of scenarios. The on-chip kernel's
+// shared-memory limit on the current device is raised to what the plan
+// needs, never lowered, so a plan stays valid once made: the wrapper makes it
+// once per device, dtype, B and N.
 template <typename T>
 cudaError_t plan(int B, int N, long long* out) {
   long long scr = rck::scratch_values(N);
@@ -499,8 +501,9 @@ cudaError_t plan(int B, int N, long long* out) {
   long long waves = (blocks + (long long)sms * resident - 1) / ((long long)sms * resident);
   out[0] = (blocks + waves - 1) / waves;
   out[1] = (long long)bytes;
-  out[2] = on_chip ? 0 : out[0] * rck::kPerBlock * scr;
-  out[3] = resident * rck::kPerBlock;
+  out[2] = scr;
+  out[3] = on_chip ? 0 : out[0] * rck::kPerBlock * scr;
+  out[4] = resident * rck::kPerBlock;
   return cudaSuccess;
 }
 
@@ -519,8 +522,9 @@ int launch(const rck::Params<T>& p, T* work, long long blocks, long long bytes, 
 }  // namespace
 
 // The plan of a launch of B scenarios of value_bytes (4 or 8), see plan():
-// out[0] blocks, out[1] shared-memory bytes per block, out[2] workspace
-// values, out[3] scenarios resident per SM. Returns a cudaError_t.
+// out[0] blocks, out[1] shared-memory bytes per block, out[2] scratch values
+// per scenario, out[3] workspace values, out[4] scenarios resident per SM.
+// Returns a cudaError_t.
 extern "C" int riccati_plan(int value_bytes, int B, int N, long long* out) {
   if (value_bytes == 4) return (int)plan<float>(B, N, out);
   if (value_bytes == 8) return (int)plan<double>(B, N, out);
@@ -528,7 +532,7 @@ extern "C" int riccati_plan(int value_bytes, int B, int N, long long* out) {
 }
 
 // blocks, bytes: out[0] and out[1] of riccati_plan for this B and N; work:
-// device memory of out[2] values, or null when that is 0.
+// device memory of out[3] values, or null when that is 0.
 extern "C" int riccati_f32(const float* Q, const float* R, const float* S, const float* A,
                            const float* Bm, const float* q, const float* r, const float* d,
                            const float* x0, float* dx, float* du, float* nu, float* work,

@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -321,44 +321,46 @@ KERNEL_SOURCE = os.path.join(cuda_build.CSRC_DIR, "irk_step.cu")
 K3_STAGES, K3_NX, K3_NU = (1, 2, 3, 4), 5, 2
 
 
-def build_kernel() -> str:
-    """Compile ``csrc/irk_step.cu`` into ``_build/`` at first use
-    (:func:`cuda_build.build`); returns the library path."""
-    return cuda_build.build(KERNEL_SOURCE)
-
-
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/irk_step.cu`` (the
     package's, or one per team size in ``scripts/k3_team.py``)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.irk_step_f32, lib.irk_step_f64):
-        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_double, i32, i32, ptr, ptr, i64, i32, ptr]
-        fn.restype = i32
-    lib.irk_step_plan.argtypes = [i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i32)]
-    lib.irk_step_plan.restype = i32
-    lib.irk_step_team.restype = lib.irk_step_rows_per_block.restype = i32
-    lib.irk_step_error_string.argtypes = [i32]
-    lib.irk_step_error_string.restype = ctypes.c_char_p
-    return lib
+    step = (i32, [ptr, ptr, ptr, ptr, ctypes.c_double, i32, i32, ptr, ptr, i64, i32, ptr])
+    return cuda_build.declare(lib, "irk_step", {
+        "f32": step, "f64": step,
+        "plan": (i32, [i32, i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i32)]),
+        "team": (i32, []), "rows_per_block": (i32, [])})
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    return bind_library(ctypes.CDLL(build_kernel()))
+    return bind_library(ctypes.CDLL(cuda_build.build(KERNEL_SOURCE)))
 
 
-def plan(stages: int, sensitivities: bool, dtype: torch.dtype) -> dict:
-    """K3's launch shape for one instantiation on the current card: lanes
-    per row (``team``), rows per block, shared memory per block (bytes) and
-    blocks resident per SM (the occupancy API)."""
-    lib = _library()
+class K3Plan(NamedTuple):
+    """K3's launch shape for one instantiation on one card."""
+    team: int            # lanes per row
+    rows_per_block: int
+    smem_bytes: int      # shared memory per block
+    blocks_per_sm: int   # blocks resident per SM (occupancy API)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(lib, device: int, stages: int, sensitivities: bool, dtype: torch.dtype) -> K3Plan:
     smem, per_sm = ctypes.c_longlong(), ctypes.c_int()
-    rc = lib.irk_step_plan(stages, int(sensitivities), int(dtype == torch.float64),
-                           ctypes.byref(smem), ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError("irk_step_plan: " + lib.irk_step_error_string(rc).decode())
-    return dict(team=lib.irk_step_team(), rows_per_block=lib.irk_step_rows_per_block(),
-                smem_bytes=smem.value, blocks_per_sm=per_sm.value)
+    with torch.cuda.device(device):
+        rc = lib.irk_step_plan(stages, int(sensitivities), int(dtype == torch.float64),
+                               ctypes.byref(smem), ctypes.byref(per_sm))
+    cuda_build.check(lib, "irk_step", rc, f"irk_step_plan failed (s={stages})")
+    return K3Plan(lib.irk_step_team(), lib.irk_step_rows_per_block(), smem.value, per_sm.value)
+
+
+def plan(stages: int, sensitivities: bool, dtype: torch.dtype, lib=None) -> K3Plan:
+    """K3's launch shape for one instantiation on the current card, made
+    once per card and instantiation. Making it sets the instantiation's
+    shared-memory limit, which its launches rely on. ``lib``: another build
+    of the source, bound by :func:`bind_library`; by default the package's."""
+    return _plan(lib or _library(), torch.cuda.current_device(), stages, sensitivities, dtype)
 
 
 def _check_k3_inputs(x, u, A, b, newton_iter, num_steps) -> None:
@@ -405,16 +407,13 @@ def irk_step_fused(x: torch.Tensor, u: torch.Tensor, A: torch.Tensor, b: torch.T
     if rows == 0:
         return (phi, D) if sensitivities else phi
     lib = _library()
-    launch = lib.irk_step_f32 if x.dtype == torch.float32 else lib.irk_step_f64
-    with torch.cuda.device(x.device):      # launch on the card that holds the data
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launch(x.data_ptr(), u.data_ptr(), A.data_ptr(), b.data_ptr(), float(h),
-                    newton_iter, num_steps, phi.data_ptr(),
-                    D.data_ptr() if sensitivities else None, rows, A.shape[0], stream)
-    if rc != 0:
-        raise RuntimeError(f"irk_step launch failed (rows={rows}, s={A.shape[0]}, "
-                           f"newton_iter={newton_iter}, num_steps={num_steps}): "
-                           + lib.irk_step_error_string(rc).decode())
+    _plan(lib, x.device.index, A.shape[0], sensitivities, x.dtype)   # its attribute, once
+    cuda_build.launch(
+        lib, "irk_step", "f32" if x.dtype == torch.float32 else "f64", x.device,
+        x.data_ptr(), u.data_ptr(), A.data_ptr(), b.data_ptr(), float(h), newton_iter, num_steps,
+        phi.data_ptr(), D.data_ptr() if sensitivities else None, rows, A.shape[0],
+        what=f"irk_step launch failed (rows={rows}, s={A.shape[0]}, newton_iter={newton_iter}, "
+             f"num_steps={num_steps})")
     irk_step_fused.launches += 1
     return (phi, D) if sensitivities else phi
 

@@ -12,7 +12,9 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   The kernel reads the fields batch-first as they come and writes dx, du, s
   batch-first; ``structure`` picks its instantiation (generic or unicycle).
   A row leaves the iteration loop once it is frozen, and a tile takes its
-  next row from a counter the wrapper allocates for the launch.
+  next row from a counter the wrapper allocates for the launch. The grid,
+  shared memory and workspace come from a plan made once per card and shape
+  (:func:`plan`).
   While a ``torch.profiler`` records, the kernel also writes two counts per
   row, and the wrapper keeps them (``utils.profiling.kept``):
   ``k1.iters``, the iterations that updated the row (a converged row keeps
@@ -365,27 +367,13 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def build_kernel() -> str:
-    """Compile ``csrc/ip_solve.cu`` into ``_build/`` at first use
-    (:func:`cuda_build.build`); returns the library path."""
-    return cuda_build.build(KERNEL_SOURCE)
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build_kernel())
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ip_solve_f32.argtypes = [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32] + [ptr] * 5
-    lib.ip_solve_f32.restype = i32
-    lib.ip_solve_workspace_floats.argtypes = [i32] * 4
-    lib.ip_solve_workspace_floats.restype = ctypes.c_longlong
-    lib.ip_solve_occupancy.argtypes = [i32] * 3
-    lib.ip_solve_occupancy.restype = i32
-    lib.ip_solve_smem_bytes.argtypes = [i32] * 3
-    lib.ip_solve_smem_bytes.restype = ctypes.c_longlong
-    lib.ip_solve_error_string.argtypes = [i32]
-    lib.ip_solve_error_string.restype = ctypes.c_char_p
-    return lib
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    return cuda_build.load(KERNEL_SOURCE, "ip_solve", {
+        "f32": (i32, [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32, i64, i64] + [ptr] * 5),
+        "plan": (i32, [i32] * 4 + [ctypes.POINTER(i64)]),
+        "smem_bytes": (i64, [i32] * 3)})
 
 
 def structure_id(structure: QpStructure | None) -> int:
@@ -405,21 +393,18 @@ def smem_bytes(N: int, M: int, structure: QpStructure | None = None) -> int:
     return _library().ip_solve_smem_bytes(structure_id(structure), N, M)
 
 
-def occupancy(N: int, M: int, structure: QpStructure | None = None) -> int:
-    """Scenarios resident per SM as the CUDA occupancy API reports them."""
-    return _library().ip_solve_occupancy(structure_id(structure), N, M)
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, sid: int, nb: int, N: int, M: int) -> cuda_build.Plan:
+    return cuda_build.plan(_library(), "ip_solve", device, sid, nb, N, M)
 
 
-def workspace_floats(nb: int, N: int, M: int, structure: QpStructure | None = None) -> int:
-    """Floats of device memory a launch of ``nb`` scenarios needs: 0 when a
-    block's shared memory holds its two scenarios' arrays (13-15 KB each at
-    N=20, M=5), else one slice per tile of the grid it launches (every
-    resident tile, at most one per scenario), which the kernel then uses in
-    place of shared memory."""
-    n = _library().ip_solve_workspace_floats(structure_id(structure), nb, N, M)
-    if n < 0:
-        raise RuntimeError(f"ip_solve_workspace_floats failed (N={N}, M={M})")
-    return n
+def plan(nb: int, N: int, M: int, structure: QpStructure | None = None) -> cuda_build.Plan:
+    """How a launch of ``nb`` scenarios runs on the current card
+    (``ip_solve_plan``, made once per card and shape): every resident tile,
+    at most one per scenario; the arrays in shared memory when a block holds
+    its two scenarios' (13-15 KB each at N=20, M=5), else in a device-memory
+    workspace of one slice per tile, which the wrapper allocates."""
+    return _plan(torch.cuda.current_device(), structure_id(structure), nb, N, M)
 
 
 def _check_cuda_qp(qp: OcpQp) -> None:
@@ -481,20 +466,15 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     nxt = torch.empty((1,), **i32)    # the hand-out counter; the launch zeroes it
     # while a profiler records, the kernel writes each row's counts
     end, used = (torch.empty((nb,), **i32) for _ in range(2)) if tracing() else (None, None)
-    lib = _library()
-    with torch.cuda.device(dev):      # plan and launch on the card that holds the data
-        n_work = workspace_floats(nb, N, M, structure)
-        work = torch.empty((n_work,), **f32) if n_work else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ip_solve_f32(*[a.data_ptr() for a in ins + [dx, du, s, mu, stat]],
-                              nb, N, M, int(iters), reg, tau, tol, stat_tol, sigma_max,
-                              sid, *[None if a is None else a.data_ptr()
-                                     for a in (work, nxt, end, used)], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"ip_solve_f32 launch failed (N={N}, M={M}, {smem_bytes(N, M, structure)} B of "
-            f"shared memory per block, {n_work} floats of workspace): "
-            + lib.ip_solve_error_string(rc).decode())
+    pl = _plan(dev.index, sid, nb, N, M)
+    work = torch.empty((pl.work,), **f32) if pl.work else None
+    cuda_build.launch(
+        _library(), "ip_solve", "f32", dev,
+        *[a.data_ptr() for a in ins + [dx, du, s, mu, stat]], nb, N, M, int(iters), reg, tau,
+        tol, stat_tol, sigma_max, sid, pl.blocks, pl.bytes,
+        *[None if a is None else a.data_ptr() for a in (work, nxt, end, used)],
+        what=f"ip_solve_f32 launch failed (N={N}, M={M}, {pl.bytes} B of shared memory per "
+             f"block, {pl.work} floats of workspace)")
     solve_ocp_qp_fused.launches += 1
     if used is not None:
         keep("k1.iters", used)

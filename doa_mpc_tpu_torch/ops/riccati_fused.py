@@ -24,7 +24,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import NamedTuple
 
 import torch
 
@@ -96,45 +95,28 @@ def riccati_solve_fused_ref(Q, R, S, A, B, q, r, d, x0, reg: float = 1e-8):
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def build_kernel() -> str:
-    """Compile ``csrc/riccati.cu`` into ``_build/`` at first use
-    (:func:`cuda_build.build`); returns the library path."""
-    return cuda_build.build(KERNEL_SOURCE)
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build_kernel())
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.riccati_f32.argtypes = [ptr] * 13 + [i32, i32, ctypes.c_float, i64, i64, ptr]
-    lib.riccati_f64.argtypes = [ptr] * 13 + [i32, i32, ctypes.c_double, i64, i64, ptr]
-    lib.riccati_f32.restype = lib.riccati_f64.restype = i32
-    lib.riccati_plan.argtypes = [i32] * 3 + [ctypes.POINTER(i64)]
-    lib.riccati_plan.restype = i32
-    lib.riccati_smem_bytes.argtypes = [i32] * 2
-    lib.riccati_smem_bytes.restype = i64
-    lib.riccati_error_string.argtypes = [i32]
-    lib.riccati_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-class Plan(NamedTuple):
-    """How a launch runs (``riccati_plan`` in ``csrc/riccati.cu``)."""
-    blocks: int        # the grid, cut to balanced waves
-    bytes: int         # shared memory per block
-    work: int          # values of device-memory workspace; 0: scratch on chip
-    resident: int      # scenarios resident per SM (occupancy API)
+    return cuda_build.load(KERNEL_SOURCE, "riccati", {
+        "f32": (i32, [ptr] * 13 + [i32, i32, ctypes.c_float, i64, i64, ptr]),
+        "f64": (i32, [ptr] * 13 + [i32, i32, ctypes.c_double, i64, i64, ptr]),
+        "plan": (i32, [i32] * 3 + [ctypes.POINTER(i64)]),
+        "smem_bytes": (i64, [i32] * 2)})
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(device: int, itemsize: int, nb: int, N: int) -> Plan:
-    out = (ctypes.c_longlong * 4)()
-    with torch.cuda.device(device):
-        rc = _library().riccati_plan(itemsize, nb, N, out)
-    if rc != 0:
-        raise RuntimeError(f"riccati_plan failed (N={N}, {itemsize}-byte values): "
-                           + _library().riccati_error_string(rc).decode())
-    return Plan(*out)
+def _plan(device: int, itemsize: int, nb: int, N: int) -> cuda_build.Plan:
+    return cuda_build.plan(_library(), "riccati", device, itemsize, nb, N)
+
+
+def plan(nb: int, N: int, dtype: torch.dtype = torch.float32) -> cuda_build.Plan:
+    """How a launch of ``nb`` scenarios runs on the current card
+    (``riccati_plan``, made once per card, dtype and shape): the grid cut to
+    balanced waves; the scratch in shared memory when a block holds its
+    scenarios', else in a device-memory workspace of one slice per tile,
+    which the wrapper allocates."""
+    return _plan(torch.cuda.current_device(), dtype.itemsize, nb, N)
 
 
 def smem_bytes(N: int, dtype: torch.dtype = torch.float32) -> int:
@@ -142,20 +124,6 @@ def smem_bytes(N: int, dtype: torch.dtype = torch.float32) -> int:
     each a team of 16 lanes) needs to hold its scenarios' stage ring, exchange buffers and
     scratch on chip, as ``csrc/riccati.cu`` sizes them."""
     return _library().riccati_smem_bytes(dtype.itemsize, N)
-
-
-def occupancy(N: int, dtype: torch.dtype = torch.float32) -> int:
-    """Scenarios resident per SM of the current card, as the CUDA occupancy
-    API reports them."""
-    return _plan(torch.cuda.current_device(), dtype.itemsize, 1, N).resident
-
-
-def workspace_values(nb: int, N: int, dtype: torch.dtype = torch.float32) -> int:
-    """Values of device memory a launch of ``nb`` scenarios on the current
-    card needs: 0 when a block's shared memory holds its scenarios' scratch,
-    else one slice per tile of the grid, which the kernel then uses in place
-    of shared memory."""
-    return _plan(torch.cuda.current_device(), dtype.itemsize, nb, N).work
 
 
 def _check_cuda_inputs(args: dict) -> None:
@@ -206,23 +174,18 @@ def riccati_solve_fused(Q, R, S, A, B, q, r, d, x0, reg: float = 1e-8):
     ins = (Q, R, S, A, B, q, r, d, x0)
     _check_cuda_inputs(dict(zip(("Q", "R", "S", "A", "B", "q", "r", "d", "x0"), ins)))
     nb, N, dtype = A.shape[0], A.shape[1], A.dtype
-    lib = _library()
     kw = dict(dtype=dtype, device=dev)
     dx = torch.empty((nb, N + 1, NX), **kw)
     du = torch.empty((nb, N, NU), **kw)
     nu = torch.empty((nb, N, NX), **kw)
-    launch = lib.riccati_f32 if dtype == torch.float32 else lib.riccati_f64
     pl = _plan(dev.index, dtype.itemsize, nb, N)
     work = torch.empty((pl.work,), **kw) if pl.work else None
-    with torch.cuda.device(dev):      # launch on the card that holds the data
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*[a.data_ptr() for a in ins + (dx, du, nu)],
-                    None if work is None else work.data_ptr(), nb, N, float(reg),
-                    pl.blocks, pl.bytes, stream)
-    if rc != 0:
-        raise RuntimeError(f"riccati launch failed (N={N}, {pl.bytes} B of shared memory per "
-                           f"block, {pl.work} values of workspace): "
-                           + lib.riccati_error_string(rc).decode())
+    cuda_build.launch(
+        _library(), "riccati", "f32" if dtype == torch.float32 else "f64", dev,
+        *[a.data_ptr() for a in ins + (dx, du, nu)], None if work is None else work.data_ptr(),
+        nb, N, float(reg), pl.blocks, pl.bytes,
+        what=f"riccati launch failed (N={N}, {pl.bytes} B of shared memory per block, "
+             f"{pl.work} values of workspace)")
     riccati_solve_fused.launches += 1
     return dx, du, nu
 

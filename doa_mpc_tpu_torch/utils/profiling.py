@@ -1,7 +1,6 @@
-"""Performance accounting (``doa_mpc_tpu/utils/profiling.py``): the FLOP
-model of a tick, the bytes of kernels K1 and K3, the card's bounds, timing,
-and the tick's spans. The kernels' operations are counted by
-``ops/op_count.py``.
+"""Performance accounting (``doa_mpc_tpu/utils/profiling.py``): the bytes
+of kernels K1 and K3, the card's bounds, timing, and the tick's spans. The
+kernels' operations are counted by ``ops/op_count.py``.
 
 The bounds model one NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data
 sheet: 3.35 TB/s of HBM and 67 TFLOP/s in float32 outside the tensor cores.
@@ -32,30 +31,6 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KEPT_MAX = 1024        # the newest references kept per name
-
-
-def tick_flops(spec, qp_iter: int, batch: int) -> dict:
-    """Analytic FLOP model of one batched control tick.
-
-    Components (per scenario):
-      linearize : N stages x RK4-with-jacfwd  (~8 tangents x ~40 flops x 4)
-      riccati   : per IP iteration, backward factorize ~ N x (4 matmuls
-                  nx^3-ish + chol) + 2 back-substitutions
-      ip_misc   : residuals/sigmas/steps over ~2(N+1)(nbx+M) + 2N*nu pairs
-    """
-    N, nx, nu, M = spec.n_solv, spec.nx, spec.nu, spec.n_obst
-    lin = N * 8 * 40 * 4
-    mm = 2 * nx * nx * nx
-    fact = N * (4 * mm + 3 * nx * nu * nu + 20)
-    solve = N * (4 * nx * nx + 6 * nx * nu)
-    per_iter = fact + 2 * solve + 40 * (N + 1) * (2 * M + nx + nu)
-    total = lin + qp_iter * per_iter
-    return {
-        "per_scenario_flops": total,
-        "per_tick_flops": total * batch,
-        "linearize_flops": lin * batch,
-        "per_ip_iter_flops": per_iter * batch,
-    }
 
 
 def fused_hbm_bytes(spec, batch: int, structure=None) -> int:
@@ -96,31 +71,6 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     operations over the f32 rate, and which of the two it is."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def speed_of_light_report(spec, qp_iter: int, batch: int,
-                          measured_tick_s: float) -> dict:
-    """Roofline accounting of one batched ``fused`` tick on the card: the
-    analytic operations of :func:`tick_flops` against the f32 rate, K1's
-    bytes (:func:`fused_hbm_bytes`, one QP read and one result write per
-    solve) against the memory rate, and the measured tick against both."""
-    f = tick_flops(spec, qp_iter, batch)
-    hbm_bytes = fused_hbm_bytes(spec, batch)
-    bound_ms, by = bound(hbm_bytes, f["per_tick_flops"])
-    achieved = f["per_tick_flops"] / measured_tick_s
-    return {
-        **f,
-        "backend": "fused",
-        "achieved_tflops": achieved / 1e12,
-        "f32_peak_ratio": achieved / F32_OPS_PER_S,
-        "ops_bound_tick_s": f["per_tick_flops"] / F32_OPS_PER_S,
-        "hbm_bytes": hbm_bytes,
-        "hbm_bound_tick_s": hbm_bytes / HBM_BYTES_PER_S,
-        "bound_tick_s": bound_ms / 1e3,
-        "bound_by": by,
-        "hbm_fraction_of_tick": hbm_bytes / HBM_BYTES_PER_S / measured_tick_s,
-        "measured_tick_s": measured_tick_s,
-    }
 
 
 def _first_tensor(tree) -> torch.Tensor:

@@ -74,12 +74,13 @@ def main():
             cases[(name, str(dtype).removeprefix("torch."))] = (x, u, A, b, sens, ref)
 
     out = {"card": device_label(dev), "reps": args.reps,
-           "package_team": integrators.plan(4, True, torch.float32)["team"], "teams": {}}
+           "package_team": integrators.plan(4, True, torch.float32).team, "teams": {}}
     with ThreadPoolExecutor(max_workers=len(args.teams)) as pool:   # one nvcc per team
         built = list(pool.map(build, args.teams))
     for team, (so, ptxas) in zip(args.teams, built):
         rec = {"ptxas": [ln for ln in ptxas if "registers" in ln or "spill" in ln]}
         for (name, dt), (x, u, A, b, sens, ref) in cases.items():
+            integrators.plan(4, sens, x.dtype, lib=so)     # its shared-memory limit
             fn = so.irk_step_f32 if x.dtype == torch.float32 else so.irk_step_f64
             phi = torch.empty_like(x)
             D = torch.empty((x.shape[0], 5, 7), dtype=x.dtype, device=dev) if sens else None

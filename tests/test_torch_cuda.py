@@ -135,7 +135,7 @@ def test_kernel_long_horizon_matches_plain(cuda, structure):
     """N=40, M=8: about 29 KB of shared memory per scenario, still on chip
     and one launch."""
     qp = _to(_qps(64, N=40, M=8, seed=2, structure=structure), cuda)
-    assert ip_fused.workspace_floats(64, 40, 8, structure) == 0
+    assert ip_fused.plan(64, 40, 8, structure).work == 0
     before = solve_ocp_qp_fused.launches
     sol = solve_ocp_qp_fused(qp, iters=1, structure=structure)
     torch.cuda.synchronize()
@@ -154,7 +154,7 @@ def test_kernel_past_shared_memory_runs_from_device_memory(cuda, structure, N):
     nb = 16
     qp = _to(_qps(nb, N=N, M=5, seed=3, structure=structure), cuda)
     assert ip_fused.smem_bytes(N, 5, structure) > 232448
-    assert ip_fused.workspace_floats(nb, N, 5, structure) > 0
+    assert ip_fused.plan(nb, N, 5, structure).work > 0
     before = solve_ocp_qp_fused.launches
     sol = solve_ocp_qp_fused(qp, iters=1, structure=structure)
     torch.cuda.synchronize()
@@ -171,12 +171,43 @@ def test_kernel_raises_when_shared_memory_does_not_fit(cuda, monkeypatch):
     workspace, is refused and raises; nothing runs and nothing is counted."""
     N = 2000
     assert ip_fused.smem_bytes(N, 5) > 232448
-    monkeypatch.setattr(ip_fused, "workspace_floats", lambda *a, **k: 0)
+    pl = ip_fused.plan(2, N, 5)
+    monkeypatch.setattr(ip_fused, "_plan", lambda *a: pl._replace(
+        bytes=ip_fused.smem_bytes(N, 5), work=0))
     qp = _to(_qps(2, N=N), cuda)
     before = solve_ocp_qp_fused.launches
     with pytest.raises(RuntimeError, match="shared memory"):
         solve_ocp_qp_fused(qp, iters=1)
     assert solve_ocp_qp_fused.launches == before
+
+
+def test_kernel_plans_once_per_shape(cuda, monkeypatch):
+    """The launch plan (grid, shared memory, workspace) is made on the first
+    launch of a card, structure, batch and shape: a second launch of the
+    same shape calls ``ip_solve_plan`` zero times. A plan for a larger
+    horizon (more shared memory) does not break the launches of a smaller
+    one, which give the bits they gave before it."""
+    lib, planned = ip_fused._library(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            planned.extend([name] if name == "ip_solve_plan" else [])
+            return getattr(lib, name)
+
+    monkeypatch.setattr(ip_fused, "_library", lambda: Spy())
+    ip_fused._plan.cache_clear()
+    uni = UNICYCLE_QP_STRUCTURE
+    small, large = (_to(_qps(37, N=N, M=M, seed=7, structure=uni), cuda)
+                    for N, M in ((20, 5), (40, 8)))
+    first = solve_ocp_qp_fused(small, iters=10, structure=uni)
+    assert len(planned) == 1
+    again = solve_ocp_qp_fused(small, iters=10, structure=uni)
+    assert len(planned) == 1
+    solve_ocp_qp_fused(large, iters=10, structure=uni)
+    last = solve_ocp_qp_fused(small, iters=10, structure=uni)
+    assert len(planned) == 2
+    for a, b, c in zip(first, again, last):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -310,12 +341,13 @@ def test_kernel_rows_do_not_depend_on_the_hand_out(cuda, structure, N, iters):
     rows (the hard ones among them) is launched alone, from shared memory
     (N=20) and from the device-memory workspace (N=200)."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    tiles = sms * ip_fused.occupancy(N, 5, structure)
+    tiles = sms * ip_fused.plan(1, N, 5, structure).resident
     nb = 3 * tiles
     qp = _mixed_qps(cuda, nb, N, structure)
     if N == 200:
-        assert ip_fused.workspace_floats(nb, N, 5, structure) == tiles * (
-            ip_fused.smem_bytes(N, 5, structure) // 8)
+        pl = ip_fused.plan(nb, N, 5, structure)
+        assert pl.blocks * 2 == tiles and pl.bytes == 0
+        assert pl.work == tiles * pl.per == tiles * (ip_fused.smem_bytes(N, 5, structure) // 8)
     sol, used, end = _counted(qp, iters, structure)
     run = torch.clamp_max(used + 1, iters)
     assert bool((end >= run).all()) and bool((end > run).any())   # tiles took more rows
@@ -382,7 +414,7 @@ def _riccati_matches_plain(args64):
 @pytest.mark.parametrize("nb", [1, 37, 512, 4096])
 def test_riccati_kernel_matches_plain(cuda, nb, N):
     args = [a.to(cuda) for a in _lqrs(nb, N=N)]
-    assert riccati_fused.workspace_values(nb, N, torch.float64) == 0
+    assert riccati_fused.plan(nb, N, torch.float64).work == 0
     _riccati_matches_plain(args)
 
 
@@ -394,7 +426,7 @@ def test_riccati_kernel_past_shared_memory_runs_from_device_memory(cuda):
     N, nb = 800, 37
     for dtype in (torch.float32, torch.float64):
         assert riccati_fused.smem_bytes(N, dtype) > 232448
-        assert riccati_fused.workspace_values(nb, N, dtype) > 0
+        assert riccati_fused.plan(nb, N, dtype).work > 0
     _riccati_matches_plain([a.to(cuda) for a in _lqrs(nb, N=N, seed=4)])
 
 
@@ -475,7 +507,7 @@ def test_kernel_sweep_corner_matches_plain(cuda, structure):
     """N=30, M=30 (the widest corner of the horizon sweep), B=100: one
     launch, the plain version's answer after 1 iteration."""
     qp = _to(_qps(100, N=30, M=30, seed=5, structure=structure), cuda)
-    assert ip_fused.workspace_floats(100, 30, 30, structure) == 0
+    assert ip_fused.plan(100, 30, 30, structure).work == 0
     before = solve_ocp_qp_fused.launches
     sol = solve_ocp_qp_fused(qp, iters=1, structure=structure)
     torch.cuda.synchronize()

@@ -11,28 +11,13 @@ import sys
 import pytest
 import torch
 
-from doa_mpc_tpu.config import WorldSpec as JSpec
-from doa_mpc_tpu.utils.profiling import tick_flops as j_tick_flops
 from doa_mpc_tpu_torch.config import WorldSpec
 from doa_mpc_tpu_torch.ops.ip_fused import GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE
 from doa_mpc_tpu_torch.ops.op_count import OpCounter
 from doa_mpc_tpu_torch.utils.profiling import (
-    F32_OPS_PER_S, HBM_BYTES_PER_S, bound, device_label, fused_hbm_bytes,
-    irk_step_bytes, speed_of_light_report, tick_flops, time_fn)
+    bound, device_label, fused_hbm_bytes, irk_step_bytes, time_fn)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def test_tick_flops_scales_and_matches_jax():
-    spec = WorldSpec(tf=2.0, n_solv=20)
-    f1 = tick_flops(spec, qp_iter=20, batch=1)
-    f2 = tick_flops(spec, qp_iter=20, batch=4096)
-    assert f2["per_tick_flops"] == 4096 * f1["per_tick_flops"]
-    assert tick_flops(spec, qp_iter=40, batch=1)["per_scenario_flops"] > \
-        1.8 * f1["per_scenario_flops"]
-    for n, m, it in ((20, 5, 6), (5, 3, 4), (30, 30, 50)):
-        assert tick_flops(WorldSpec(n_solv=n, n_obst=m), it, 7) == \
-            j_tick_flops(JSpec(n_solv=n, n_obst=m), it, 7)
 
 
 def test_fused_hbm_bytes_exact():
@@ -94,20 +79,6 @@ def test_irk_step_bytes_exact():
     # 162,775,056 operations (test_irk_step_ops_counts_the_kernel_code)
     ms, by = bound(irk_step_bytes(81_920, 4, True, 4), 81_920 * 1_987 + 16)
     assert by == "bytes" and ms == pytest.approx(0.0045973, abs=5e-7)
-
-
-def test_speed_of_light_report_fields():
-    spec = WorldSpec(tf=2.0, n_solv=20)
-    rep = speed_of_light_report(spec, qp_iter=6, batch=4096, measured_tick_s=0.01)
-    assert rep["hbm_bytes"] == 29_736_960
-    assert rep["hbm_bound_tick_s"] == pytest.approx(29_736_960 / HBM_BYTES_PER_S)
-    assert rep["ops_bound_tick_s"] == pytest.approx(rep["per_tick_flops"] / F32_OPS_PER_S)
-    assert rep["bound_tick_s"] == max(rep["hbm_bound_tick_s"], rep["ops_bound_tick_s"])
-    assert 0 < rep["f32_peak_ratio"] < 1 and 0 < rep["hbm_fraction_of_tick"] < 1
-    # the fused kernel's traffic does not scale with the IP iterations
-    rep2 = speed_of_light_report(spec, qp_iter=12, batch=4096, measured_tick_s=0.01)
-    assert rep2["hbm_bytes"] == rep["hbm_bytes"]
-    assert rep2["per_tick_flops"] > rep["per_tick_flops"]
 
 
 def test_time_fn_chains_calls_on_the_cpu():
