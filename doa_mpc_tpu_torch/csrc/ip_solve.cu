@@ -69,6 +69,12 @@
 //   of two passes last the sum of the two slowest rows of one tile; taken
 //   from the counter, a long row holds one tile while the others drain the
 //   rest. Registers are not the limit (ptxas figures in PERF.md).
+// - Rows the caller skips: the closed loop freezes a done row's state and
+//   discards its answer, yet a row done while at the cap would get the same
+//   QP from the same start on every later tick and run all its iterations
+//   again. A per-row mask marks such rows; a marked row gets no init and no
+//   iteration, only defined outputs (skip_row), and its tile takes the next
+//   row at once.
 // - The structure at compile time: Generic reads the QP densely and is right
 //   for any QP; Unicycle (ops/ip_fused.UNICYCLE_QP_STRUCTURE: diagonal Q and
 //   R, S = 0, C only in columns 0 and 1, identity columns 0 and 1 of A,
@@ -208,6 +214,9 @@ struct Params {
   int* end;           // per row, the iterations its tile had run in this
                       // launch when the row was done, the row's own included;
                       // may be null
+  const bool* skip;   // per row, true where the caller discards the row's
+                      // answer (skip_row); may be null
+  int* skipped;       // the rows skipped in this launch; may be null
 };
 
 // Shared-memory floats per scenario (state, work arrays, A and B, scratch).
@@ -903,6 +912,34 @@ struct Solver {
   }
 };
 
+// A row the caller marks in skip (a done row of the closed loop, whose
+// answer it discards) gets no init and no iteration: its tile writes zeros
+// for dx, du, s, mu and stat, 0 for iters_used and the tile's count so far
+// for end, counts the row in skipped, and takes its next row.
+template <typename T>
+HD bool skips(const Params<T>& p, int b) { return p.skip != nullptr && p.skip[b]; }
+
+template <typename T, class TM>
+HD void skip_row(const Params<T>& p, int b, TM tm, int ran) {
+  int N = p.N, N1 = p.N + 1, M = p.M;
+  for (int e = tm.rank(); e < N1 * NX; e += tm.size()) p.dx[(size_t)b * N1 * NX + e] = T(0);
+  for (int e = tm.rank(); e < N * NU; e += tm.size()) p.du[(size_t)b * N * NU + e] = T(0);
+  for (int e = tm.rank(); e < N1 * M; e += tm.size()) p.s[(size_t)b * N1 * M + e] = T(0);
+  if (tm.rank() == 0) {
+    p.mu[b] = T(0);
+    p.stat[b] = T(0);
+    if (p.iters_used != nullptr) p.iters_used[b] = 0;
+    if (p.end != nullptr) p.end[b] = ran;
+    if (p.skipped != nullptr) {
+#ifdef __CUDA_ARCH__
+      atomicAdd(p.skipped, 1);
+#else
+      ++*p.skipped;
+#endif
+    }
+  }
+}
+
 }  // namespace ipk
 
 #ifndef __CUDACC__
@@ -916,7 +953,8 @@ void host_solve(const Params<T>& p, int structure) {
   std::vector<T> sm(smem_floats(p.N, p.M, structure == 1), (T)NAN);
   int ran = 0;
   for (int b = 0; b < p.B; ++b) {
-    if (structure == 1) ran = Solver<T, Unicycle, HostTeam>(p, b, sm.data(), HostTeam{}).solve(ran);
+    if (skips(p, b)) skip_row(p, b, HostTeam{}, ran);
+    else if (structure == 1) ran = Solver<T, Unicycle, HostTeam>(p, b, sm.data(), HostTeam{}).solve(ran);
     else ran = Solver<T, Generic, HostTeam>(p, b, sm.data(), HostTeam{}).solve(ran);
   }
 }
@@ -927,6 +965,8 @@ void host_solve(const Params<T>& p, int structure) {
 // One warp per block, two tiles of one scenario each at a time. A tile
 // solves the scenario of its own index, then takes scenario tiles + n from
 // the n-th ticket of `next` (zeroed before the launch) until they run out.
+// A scenario marked in p.skip costs its tile a few stores (skip_row); every
+// lane reads the same mask byte, so the tile stays together.
 // Each tile's arrays are in dynamic shared memory (ON_CHIP) or in its slice
 // of the device-memory workspace `work`. Where they live is a template
 // parameter: a pointer that may be either makes every access a generic one,
@@ -943,7 +983,8 @@ ip_solve_kernel(ipk::Params<float> p, int per, float* work, int* next) {
   ipk::DevTeam tm{(int)(threadIdx.x % ipk::kTeam)};
   int ran = 0;                              // iterations this tile has run
   for (int b = own; b < p.B;) {             // the whole tile moves together
-    ran = ipk::Solver<float, ST, ipk::DevTeam>(p, b, arrays, tm).solve(ran);
+    if (ipk::skips(p, b)) ipk::skip_row(p, b, tm, ran);
+    else ran = ipk::Solver<float, ST, ipk::DevTeam>(p, b, arrays, tm).solve(ran);
     b = tiles + tm.bcast(tm.rank() == 0 ? atomicAdd(next, 1) : 0);
   }
 }
@@ -1001,8 +1042,9 @@ cudaError_t plan(int B, int N, int M, long long* out) {
 // A launch on a plan: the on-chip instantiation when work is null, else the
 // device-memory one. cudaErrorInvalidValue when there is no counter, or no
 // workspace and less shared memory than two scenarios' arrays. The counter
-// is zeroed on the launch's stream, so launches on other streams keep
-// theirs apart and the pair can be captured in a CUDA graph.
+// (and p.skipped, where set) is zeroed on the launch's stream, so launches
+// on other streams keep theirs apart and the launch can be captured in a
+// CUDA graph.
 template <class ST>
 int launch(const ipk::Params<float>& p, long long blocks, long long bytes, float* work,
            int* next, cudaStream_t stream) {
@@ -1010,6 +1052,8 @@ int launch(const ipk::Params<float>& p, long long blocks, long long bytes, float
   long long chip = (long long)per * (long long)sizeof(float) * ipk::kPerBlock;
   if (next == nullptr || (work == nullptr && bytes < chip)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (e == cudaSuccess && p.skipped != nullptr)
+    e = cudaMemsetAsync(p.skipped, 0, sizeof(int), stream);
   if (e != cudaSuccess) return (int)e;
   if (work == nullptr)
     ip_solve_kernel<ST, true><<<(unsigned)blocks, ipk::kWarp, (size_t)bytes, stream>>>(
@@ -1035,6 +1079,7 @@ extern "C" int ip_solve_plan(int structure, int B, int N, int M, long long* out)
 // blocks, bytes: out[0] and out[1] of ip_solve_plan for this structure, B,
 // N and M; work: device memory of its out[3] floats, or null when that is 0.
 // next: one int of device memory for the hand-out counter, the launch's own.
+// skip: B bools, or null (no row skipped); skipped: one int, or null.
 // end and iters_used: B ints each (Params), or null.
 extern "C" int ip_solve_f32(
     const float* A, const float* Bm, const float* c, const float* dx0,
@@ -1044,11 +1089,11 @@ extern "C" int ip_solve_f32(
     float* dx, float* du, float* s, float* mu, float* stat,
     int B, int N, int M, int iters,
     float reg, float tau, float tol, float stat_tol, float sigma_max,
-    int structure, long long blocks, long long bytes, float* work, int* next, int* end,
-    int* iters_used, void* stream) {
+    int structure, long long blocks, long long bytes, float* work, int* next,
+    const bool* skip, int* skipped, int* end, int* iters_used, void* stream) {
   ipk::Params<float> p{A, Bm, c, dx0, Q, q, R, r, S, lbu, ubu, lbx, ubx, C, h, zl, Zl,
                        dx, du, s, mu, stat, B, N, M, iters,
-                       reg, tau, tol, stat_tol, sigma_max, iters_used, end};
+                       reg, tau, tol, stat_tol, sigma_max, iters_used, end, skip, skipped};
   cudaStream_t st = (cudaStream_t)stream;
   if (structure == 0) return launch<ipk::Generic>(p, blocks, bytes, work, next, st);
   if (structure == 1) return launch<ipk::Unicycle>(p, blocks, bytes, work, next, st);

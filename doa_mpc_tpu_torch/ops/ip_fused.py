@@ -22,6 +22,13 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   the iterations its tile had run in the launch when the row was done, the
   row's own included (the largest is the launch's length in iterations).
   Otherwise the kernel gets null pointers and counts nothing.
+- ``skip``, an optional (B,) bool mask on the QP's device, marks rows whose
+  answer the caller discards (the batched tick passes its ``done`` rows,
+  which it freezes). A marked row runs no iteration: its dx, du, s, mu and
+  stat are zeros and its count of iterations 0, and the kernel's tile takes
+  the next row at once. Unmarked rows are solved as without the mask, bit
+  for bit. While a profiler records, the kernel counts the rows it skipped
+  into one int, kept as ``k1.skipped``.
 - :func:`solve_ocp_qp_fused_ref` is the plain PyTorch version. It follows the
   fused kernel's formulas, not ``ip_qp``'s: no ``sigma_retry``; the
   fraction-to-boundary step is ``min(1, tau * min ratio)`` with the 2.0
@@ -32,9 +39,10 @@ of soft-constrained OCP QPs (``ops/ocp_qp.OcpQp``, batch-first).
   ``P_N = Qbar(N)``; the Cholesky of Huu adds ``reg`` and floors at 1e-30.
   Stage-serial recursions are Python loops over stages; stage-local work is
   batched over scenarios and stages. It counts and keeps each row's
-  iterations (``k1.iters``) as the kernel does. It takes every row through
-  all ``iters`` iterations, a frozen row unchanged, so it keeps no
-  ``k1.end``.
+  iterations (``k1.iters``) and the rows it skipped (``k1.skipped``) as the
+  kernel does. It takes every row through all ``iters`` iterations, a
+  frozen row unchanged, and then gives the skipped rows the kernel's zeros,
+  so it keeps no ``k1.end``.
 """
 
 from __future__ import annotations
@@ -168,14 +176,30 @@ def _ftb(pairs, nb, like):
     return a
 
 
+def _check_skip(skip: torch.Tensor | None, qp: OcpQp) -> torch.Tensor | None:
+    """The mask of rows to skip as the kernel reads it (contiguous), or None;
+    raises unless it is bool, (B,) and on the QP's device."""
+    if skip is None:
+        return None
+    if skip.dtype != torch.bool:
+        raise TypeError(f"skip must be a bool mask; it is {skip.dtype}")
+    if tuple(skip.shape) != qp.A.shape[:1]:
+        raise ValueError(f"skip has shape {tuple(skip.shape)}, expected {tuple(qp.A.shape[:1])}")
+    if skip.device != qp.A.device:
+        raise ValueError(f"skip is on {skip.device}, the QP on {qp.A.device}")
+    return skip.contiguous()
+
+
 def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
                            reg: float | None = None, tol: float | None = None,
                            normalize: bool = True,
-                           structure: QpStructure | None = None) -> IpSolution:
+                           structure: QpStructure | None = None,
+                           skip: torch.Tensor | None = None) -> IpSolution:
     """Plain PyTorch version of kernel K1 (module docstring lists the
     formulas it shares with the kernel and not with ``ip_qp``)."""
     if iters < 1:
         raise ValueError("iters must be >= 1")
+    skip = _check_skip(skip, qp)
     dtype = qp.Q.dtype
     tol, reg, sigma_max, stat_tol = _constants(dtype, reg, tol)
     if normalize:
@@ -358,6 +382,12 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
         t_ul, l_ul = upd(t_ul, a_p, cor["tul"], True), upd(l_ul, a_d, cor["lul"], True)
         t_uu, l_uu = upd(t_uu, a_p, cor["tuu"], True), upd(l_uu, a_d, cor["luu"], True)
 
+    if skip is not None:
+        # the kernel's outputs for a row it skips
+        dx, du, s, mu, stat = (torch.where(_bc(skip, a), 0.0, a) for a in (dx, du, s, mu, stat))
+        if used is not None:
+            used = torch.where(skip, 0, used)
+            keep("k1.skipped", skip.sum(dtype=torch.int32).reshape(1))
     if used is not None:
         keep("k1.iters", used)
     return IpSolution(dx=dx, du=du, s=s, mu=mu, kappa=kappa, stat_res=stat)
@@ -371,7 +401,7 @@ def solve_ocp_qp_fused_ref(qp: OcpQp, iters: int = 50, tau: float = 0.99,
 def _library():
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return cuda_build.load(KERNEL_SOURCE, "ip_solve", {
-        "f32": (i32, [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32, i64, i64] + [ptr] * 5),
+        "f32": (i32, [ptr] * 22 + [i32] * 4 + [f32] * 5 + [i32, i64, i64] + [ptr] * 7),
         "plan": (i32, [i32] * 4 + [ctypes.POINTER(i64)]),
         "smem_bytes": (i64, [i32] * 3)})
 
@@ -432,23 +462,26 @@ def _check_cuda_qp(qp: OcpQp) -> None:
 def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
                        reg: float | None = None, tol: float | None = None,
                        normalize: bool = True,
-                       structure: QpStructure | None = None) -> IpSolution:
+                       structure: QpStructure | None = None,
+                       skip: torch.Tensor | None = None) -> IpSolution:
     """Whole interior-point solve of a batch of QPs (one leading batch axis).
 
     CPU tensors run :func:`solve_ocp_qp_fused_ref`. CUDA tensors (float32,
     nx = 5, nu = 2) launch the kernel instantiated for ``structure`` (see
     :func:`structure_id`) once and add one to ``solve_ocp_qp_fused.launches``;
-    anything else raises."""
+    anything else raises. Rows marked in ``skip`` get zeros (module
+    docstring)."""
     sid = structure_id(structure)
     dev = qp.A.device
     if dev.type == "cpu":
         return solve_ocp_qp_fused_ref(qp, iters=iters, tau=tau, reg=reg, tol=tol,
-                                      normalize=normalize, structure=structure)
+                                      normalize=normalize, structure=structure, skip=skip)
     if dev.type != "cuda":
         raise ValueError(f"solve_ocp_qp_fused: unsupported device {dev}")
     if iters < 1:
         raise ValueError("iters must be >= 1")
     _check_cuda_qp(qp)
+    skip = _check_skip(skip, qp)
     tol, reg, sigma_max, stat_tol = _constants(torch.float32, reg, tol)
     if normalize:
         qp, kappa = normalize_cost(qp)
@@ -464,21 +497,25 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     stat = torch.empty((nb,), **f32)
     i32 = dict(dtype=torch.int32, device=dev)
     nxt = torch.empty((1,), **i32)    # the hand-out counter; the launch zeroes it
-    # while a profiler records, the kernel writes each row's counts
+    # while a profiler records, the kernel writes each row's counts and the
+    # rows it skipped (an int the launch zeroes)
     end, used = (torch.empty((nb,), **i32) for _ in range(2)) if tracing() else (None, None)
+    skipped = torch.empty((1,), **i32) if used is not None and skip is not None else None
     pl = _plan(dev.index, sid, nb, N, M)
     work = torch.empty((pl.work,), **f32) if pl.work else None
     cuda_build.launch(
         _library(), "ip_solve", "f32", dev,
         *[a.data_ptr() for a in ins + [dx, du, s, mu, stat]], nb, N, M, int(iters), reg, tau,
         tol, stat_tol, sigma_max, sid, pl.blocks, pl.bytes,
-        *[None if a is None else a.data_ptr() for a in (work, nxt, end, used)],
+        *[None if a is None else a.data_ptr() for a in (work, nxt, skip, skipped, end, used)],
         what=f"ip_solve_f32 launch failed (N={N}, M={M}, {pl.bytes} B of shared memory per "
              f"block, {pl.work} floats of workspace)")
     solve_ocp_qp_fused.launches += 1
     if used is not None:
         keep("k1.iters", used)
         keep("k1.end", end)
+    if skipped is not None:
+        keep("k1.skipped", skipped)
     return IpSolution(dx=dx, du=du, s=s, mu=mu, kappa=kappa, stat_res=stat)
 
 

@@ -172,7 +172,8 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
     Backends:
 
     - ``'fused'``: the whole interior-point solve in one launch of kernel K1,
-      its unicycle instantiation (its plain version for CPU tensors);
+      its unicycle instantiation (its plain version for CPU tensors), which
+      skips the done rows: their answer is zeros, and the freeze discards it;
     - ``'torch'``: ``ops/ip_qp.solve_ocp_qp`` with the plain Riccati sweep
       (the JAX package's ``'xla'``);
     - ``'riccati'``: the same solver with each Newton solve in kernel K2
@@ -202,9 +203,10 @@ def make_batched_tick(ctrl: RtiController, goal, params: CostParams,
                 if backend == "fused":
                     # the i-th kept ``done`` belongs to the i-th K1 launch
                     keep("tick.done", st.done)
-                    # build_qp's QPs carry the unicycle structure, as in the JAX tick
+                    # build_qp's QPs carry the unicycle structure, as in the JAX
+                    # tick; done rows are frozen below, so K1 skips their solve
                     sol = solve_ocp_qp_fused(qp, iters=opts.qp_iter, tau=opts.ip_tau,
-                                             structure=UNICYCLE_QP_STRUCTURE)
+                                             structure=UNICYCLE_QP_STRUCTURE, skip=st.done)
                 elif backend != "zero":
                     # no ``reg``: the solver's dtype default (1e-6 in f32), as the
                     # JAX package's batched tick does

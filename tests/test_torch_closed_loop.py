@@ -248,3 +248,41 @@ def test_cli_experiment_riccati_backend_same_schema(tmp_path):
                               n_runs=2, max_iter=5, dtype=torch.float64, backend="riccati",
                               compat_rng=True, device="cpu")
     np.testing.assert_allclose(data, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("status4", [False, True], ids=["plain", "status4"])
+def test_fused_tick_skipping_done_rows_leaves_the_loop_state_unchanged(monkeypatch, status4):
+    """The ``fused`` tick hands K1 its ``done`` rows to skip. Their zeros
+    are discarded by the freeze, and with the status-4 analogue on they read
+    as a solve that did not fail: over a few ticks of a small float32 batch
+    with some rows done from the start, every field of the loop state is
+    bit for bit what the tick gives when K1 solves every row."""
+    _, _, spec, opts = _specs(qp_iter=8, status4=status4)
+    ctrl = make_rti_controller(spec, opts, dtype=torch.float32, device="cpu")
+    params = default_cost_params(spec, dtype=torch.float32, device="cpu")
+    start, goal = robot_start_goal(spec)
+    gen = torch.Generator().manual_seed(3)
+    st0 = closed_loop.init_loop_state(ctrl, start, goal, "RANDOM", batch_shape=(6,),
+                                      generator=gen)
+    st0 = st0._replace(done=torch.tensor([True, False, False, True, False, True]))
+    noise = torch.randn((4, 6, M, 2), generator=gen)
+    handed = []
+
+    def solve(qp, **kw):
+        handed.append(kw.get("skip"))
+        return solve_ocp_qp_fused(qp, **kw)
+
+    def run():
+        return make_batched_rollout(ctrl, goal, params, max_iter=4, backend="fused",
+                                    use_noise_traj=True)(st0, noise)
+
+    monkeypatch.setattr(closed_loop, "solve_ocp_qp_fused", solve)
+    skipping = run()
+    assert len(handed) == 4 and torch.equal(handed[0], st0.done)
+    monkeypatch.setattr(closed_loop, "solve_ocp_qp_fused",
+                        lambda qp, skip=None, **kw: solve_ocp_qp_fused(qp, **kw))
+    solving = run()
+    flat = lambda s: [a for f in s for a in (f if isinstance(f, tuple) else (f,))]
+    for a, b in zip(flat(skipping), flat(solving)):
+        assert torch.equal(a, b)
+    assert torch.equal(skipping.x0[st0.done], st0.x0[st0.done])

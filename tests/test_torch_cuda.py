@@ -367,6 +367,51 @@ def test_kernel_rows_do_not_depend_on_the_hand_out(cuda, structure, N, iters):
         assert bool(torch.isfinite(a).all())
 
 
+@STRUCTURES
+@pytest.mark.parametrize("N,iters", [(20, 100), (200, 10)], ids=["on_chip", "workspace"])
+def test_kernel_skips_the_masked_rows(cuda, structure, N, iters):
+    """At three times the card's tiles, the hard rows mixed in and about
+    half of the rows masked (hard rows on both sides): on the unmasked rows
+    K1 gives every output and count bit for bit as without the mask, on the
+    masked rows zeros and 0 iterations, and it counts the masked rows in
+    ``k1.skipped``. A masked row's ``end`` is its tile's count before it:
+    0 where it is its tile's first row, no more than the launch's length
+    elsewhere. Without a profiler the mask gives the same outputs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles = sms * ip_fused.plan(1, N, 5, structure).resident
+    nb = 3 * tiles
+    qp = _mixed_qps(cuda, nb, N, structure)
+    skip = torch.rand(nb, generator=torch.Generator().manual_seed(5)) < 0.5
+    skip[::97] = torch.arange(0, nb, 97) % 194 == 0          # every other hard row
+    skip = skip.to(cuda)
+    want, want_used, _ = _counted(qp, iters, structure)
+    profiling.clear_kept()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sol = solve_ocp_qp_fused(qp, iters=iters, structure=structure, skip=skip)
+    (used,), (end,), (skipped,) = (profiling.kept(k) for k in ("k1.iters", "k1.end",
+                                                               "k1.skipped"))
+    profiling.clear_kept()
+    for f in sol._fields:
+        got, ref = getattr(sol, f), getattr(want, f)
+        if f == "kappa":
+            assert torch.equal(got, ref)
+            continue
+        assert torch.equal(got[~skip], ref[~skip]), f
+        assert bool((got[skip] == 0).all()), f
+    skip, used, end = skip.cpu(), used.long().cpu(), end.long().cpu()
+    assert 0.4 < float(skip.double().mean()) < 0.6
+    assert torch.equal(used, torch.where(skip, 0, want_used))
+    assert int(skipped.cpu()) == int(skip.sum())
+    run = torch.clamp_max(used + 1, iters)
+    assert bool((end[~skip] >= run[~skip]).all())
+    first = torch.arange(nb) < tiles
+    assert bool((end[skip & first] == 0).all())
+    assert bool((end[skip] <= int(end.max())).all()) and bool((end >= 0).all())
+    untraced = solve_ocp_qp_fused(qp, iters=iters, structure=structure, skip=skip.to(cuda))
+    for a, b in zip(sol, untraced):
+        assert torch.equal(a, b)
+
+
 def _lqrs(nb, N=20, seed=0):
     """Seeded LQR batches with SPD costs (the recipe of
     tests/test_riccati._random_lqr, batched), float64, in the order of

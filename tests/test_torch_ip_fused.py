@@ -172,6 +172,59 @@ def test_cuda_wrapper_validates_inputs():
     ip_fused._check_cuda_qp(qp32)
 
 
+MASKS = {"none": lambda nb: torch.zeros(nb, dtype=torch.bool),
+         "some": lambda nb: torch.arange(nb) % 2 == 1,
+         "all": lambda nb: torch.ones(nb, dtype=torch.bool)}
+
+
+def _assert_skipped_rows(sol, ref, skip, used=None, want_used=None):
+    """``sol`` (solved under ``skip``) against ``ref`` (solved without a
+    mask): the kernel's zeros on the skipped rows, the bits of ``ref`` on
+    the others; likewise the iteration counts, where given."""
+    for f in ("dx", "du", "s", "mu", "stat_res"):
+        got, want = getattr(sol, f), getattr(ref, f)
+        assert torch.equal(got[~skip], want[~skip]), f
+        assert bool((got[skip] == 0).all()), f
+    assert torch.equal(sol.kappa, ref.kappa)
+    if used is not None:
+        assert torch.equal(used, torch.where(skip, 0, want_used))
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("kind", ["controller", "hard"])
+def test_plain_skips_the_masked_rows(kind, mask):
+    """With a mask the plain version gives the bits it gives without one on
+    the unmasked rows, and on the masked rows the kernel's zeros and no
+    iteration (``k1.iters`` 0), counting them in ``k1.skipped``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from doa_mpc_tpu_torch.utils import profiling
+
+    qp = ocp_qp_from_numpy(QP_SETS[kind](), "cpu", torch.float32)
+    skip = MASKS[mask](qp.A.shape[0])
+    profiling.clear_kept()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ref = solve_ocp_qp_fused_ref(qp, iters=20)
+        sol = solve_ocp_qp_fused(qp, iters=20, skip=skip)
+    (want_used, used), (skipped,) = profiling.kept("k1.iters"), profiling.kept("k1.skipped")
+    profiling.clear_kept()
+    _assert_skipped_rows(sol, ref, skip, used, want_used)
+    assert int(skipped) == int(skip.sum())
+
+
+def test_wrapper_validates_the_skip_mask():
+    """The mask is bool, one per row, on the QP's device; anything else
+    raises before a solve."""
+    qp = random_qps(2, torch.float32)
+    for bad, err in ((torch.zeros(2, dtype=torch.int32), TypeError),
+                     (torch.zeros(3, dtype=torch.bool), ValueError),
+                     (torch.zeros(2, 1, dtype=torch.bool), ValueError),
+                     (torch.zeros(2, dtype=torch.bool, device="meta"), ValueError)):
+        with pytest.raises(err, match="skip"):
+            solve_ocp_qp_fused(qp, iters=1, skip=bad)
+    assert ip_fused._check_skip(None, qp) is None
+
+
 def test_wrapper_raises_on_a_structure_without_an_instantiation():
     """Only GENERIC_STRUCTURE (or None) and UNICYCLE_QP_STRUCTURE have a
     kernel instantiation; any other declaration raises, on every device."""
@@ -188,11 +241,11 @@ _HARNESS = r"""
 extern "C" void host_solve_f64(const double** in, double** out, int B, int N, int M,
                                int iters, double reg, double tau, double tol,
                                double stat_tol, double sigma_max, int structure,
-                               int* used, int* end) {
+                               int* used, int* end, const bool* skip, int* skipped) {
   ipk::Params<double> p{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
                         in[9], in[10], in[11], in[12], in[13], in[14], in[15], in[16],
                         out[0], out[1], out[2], out[3], out[4], B, N, M, iters,
-                        reg, tau, tol, stat_tol, sigma_max, used, end};
+                        reg, tau, tol, stat_tol, sigma_max, used, end, skip, skipped};
   ipk::host_solve<double>(p, structure);
 }
 template void ipk::host_solve<float>(const ipk::Params<float>&, int);
@@ -214,11 +267,12 @@ def host_kernel(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     so.host_solve_f64.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                                   + [ctypes.c_double] * 5 + [ctypes.c_int]
-                                  + [ctypes.c_void_p] * 2)
+                                  + [ctypes.c_void_p] * 4)
     return so
 
 
-def _host_solve(host_kernel, qp, iters, structure, used=None, end=None):
+def _host_solve(host_kernel, qp, iters, structure, used=None, end=None, skip=None,
+                skipped=None):
     """The kernel's body on the host in float64 (one lane walks the rows in
     order): dx, du, s, mu, stat, NaN where it wrote nothing."""
     tol, reg, sigma_max, stat_tol = ip_fused._constants(torch.float64, None, None)
@@ -232,7 +286,8 @@ def _host_solve(host_kernel, qp, iters, structure, used=None, end=None):
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     host_kernel.host_solve_f64(ptrs(ins), ptrs(outs), nb, N, M, iters, reg, 0.99, tol,
                                stat_tol, sigma_max, ip_fused.structure_id(structure),
-                               *[None if a is None else a.data_ptr() for a in (used, end)])
+                               *[None if a is None else a.data_ptr()
+                                 for a in (used, end, skip, skipped)])
     return outs
 
 
@@ -281,6 +336,36 @@ def test_kernel_source_on_host_leaves_the_loop_once_a_row_is_frozen(host_kernel,
     run = torch.diff(end, prepend=torch.zeros(1, dtype=torch.int32))
     assert torch.equal(run, torch.clamp_max(used + 1, iters))
     assert int(used.max()) < iters       # every row froze before the cap
+
+
+@pytest.mark.parametrize("structure", [GENERIC_STRUCTURE, UNICYCLE_QP_STRUCTURE],
+                         ids=["generic", "unicycle"])
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("kind", ["controller", "hard"])
+def test_kernel_source_on_host_skips_the_masked_rows(host_kernel, kind, mask, structure):
+    """Under a mask the kernel's body gives the plain version's outputs under
+    the same mask: zeros, 0 iterations and the lane's count so far as
+    ``end`` on the masked rows (so their run, end[b] - end[b - 1], is 0), and
+    on the others the outputs and counts it gives without the mask. It
+    counts the masked rows in ``skipped``."""
+    qp = ocp_qp_from_numpy(QP_SETS[kind](), "cpu", torch.float64)
+    nb, iters = qp.A.shape[0], 50
+    skip = MASKS[mask](nb)
+    ints = lambda: torch.full((nb,), -1, dtype=torch.int32)
+    used0, end0, used, end = ints(), ints(), ints(), ints()
+    skipped = torch.zeros(1, dtype=torch.int32)
+    whole = _host_solve(host_kernel, qp, iters, structure, used0, end0)
+    outs = _host_solve(host_kernel, qp, iters, structure, used, end, skip, skipped)
+    plain = solve_ocp_qp_fused_ref(qp, iters=iters, skip=skip)
+    _assert_host_matches_plain(outs, plain, **(dict(atol=1e-7, mu_rtol=1e-6)
+                                               if kind == "hard" else {}))
+    for got, want in zip(outs, whole):
+        assert torch.equal(got[~skip], want[~skip]) and bool((got[skip] == 0).all())
+    assert torch.equal(used, torch.where(skip, 0, used0))
+    run = torch.diff(end, prepend=torch.zeros(1, dtype=torch.int32))
+    want_run = torch.diff(end0, prepend=torch.zeros(1, dtype=torch.int32))
+    assert torch.equal(run, torch.where(skip, 0, want_run))
+    assert int(skipped) == int(skip.sum())
 
 
 @pytest.fixture(scope="module")

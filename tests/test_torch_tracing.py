@@ -113,7 +113,7 @@ def test_each_tick_is_one_span_with_its_phases_nested_inside(kind):
     assert sum(1 for e in evs if not any(_inside(e, t) for t in ticks)) == 0
     kept = profiling.kept("k1.iters")
     assert len(kept) == (2 if kind == "batched" else 0)
-    assert len(profiling.kept("tick.done")) == len(kept)
+    assert len(profiling.kept("tick.done")) == len(profiling.kept("k1.skipped")) == len(kept)
 
 
 def _spread_qps(nb=6):
@@ -264,6 +264,24 @@ def test_reader_gives_its_exact_value_on_a_known_trace(name):
 def test_reader_gives_none_without_tick_spans(name):
     _keep_two_launches()
     assert harness.reader(name)(_trace(with_spans=False)) is None
+
+
+def test_skipped_share_reads_the_rows_k1_skipped_over_the_launches_rows():
+    """``k1_skipped_pct``: the rows K1 skipped over all rows of the traced
+    launches, in percent; None without tick spans, without the count, or
+    without one count per launch."""
+    read = harness.reader("k1_skipped_pct")
+    with profile(activities=[ProfilerActivity.CPU]):
+        for rows, skipped in ((3, 1), (4, 2)):
+            profiling.keep("k1.iters", torch.zeros(rows, dtype=torch.int32))
+            profiling.keep("k1.skipped", torch.tensor([skipped], dtype=torch.int32))
+    assert read(_trace()) == pytest.approx(100.0 * 3 / 7, rel=1e-12)
+    assert read(_trace(with_spans=False)) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.keep("k1.iters", torch.zeros(5, dtype=torch.int32))
+    assert read(_trace()) is None            # a launch without the count
+    profiling.clear_kept()
+    assert read(_trace()) is None
 
 
 def test_innermost_span_and_interval_arithmetic():
