@@ -32,6 +32,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from doa_mpc_tpu_torch.ops import cuda_build
+from doa_mpc_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -441,9 +442,9 @@ def make_integrator(options) -> Callable:
 def make_linearization(options) -> Callable:
     """Build lin(x, u, dt) -> (Phi, dPhi/dx, dPhi/du) over rows x (R, nx),
     u (R, nu) from :class:`doa_mpc_tpu_torch.config.SolverOptions`: rk4
-    through ``vmap(jacfwd(...))`` with Phi as its aux output, IRK from one
-    :func:`irk_step` with its IFT sensitivities (on the card one launch of
-    kernel K3 over all rows)."""
+    through ``vmap(jacfwd(...))`` with Phi as its aux output, inside the
+    span ``doa.rk4_lin``; IRK from one :func:`irk_step` with its IFT
+    sensitivities (on the card one launch of kernel K3 over all rows)."""
     from doa_mpc_tpu_torch.models.unicycle import dynamics
 
     if options.integrator == "irk":
@@ -463,6 +464,7 @@ def make_linearization(options) -> Callable:
     jac = vmap(jacfwd(phi_twice, argnums=(0, 1), has_aux=True), in_dims=(0, 0, None))
 
     def lin(x, u, dt):
-        (A, B), phi = jac(x, u, dt)
+        with span("doa.rk4_lin"):
+            (A, B), phi = jac(x, u, dt)
         return phi, A, B
     return lin

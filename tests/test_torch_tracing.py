@@ -19,6 +19,7 @@ import subprocess
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._pytree import tree_leaves
 
 from doa_mpc_tpu_torch.config import SolverOptions, WorldSpec, default_cost_params
 from doa_mpc_tpu_torch.ops import ip_fused
@@ -34,7 +35,8 @@ from mpcbench.trace import Trace
 
 F64 = torch.float64
 PHASES = ("doa.forecast", "doa.build_qp", "doa.solve", "doa.advance")
-INNER = {"doa.linearize": "doa.build_qp", "doa.integrate": "doa.advance"}
+INNER = {"doa.linearize": "doa.build_qp", "doa.rk4_lin": "doa.linearize",
+         "doa.integrate": "doa.advance"}
 
 
 @pytest.fixture(autouse=True)
@@ -44,9 +46,9 @@ def _empty_store():
     profiling.clear_kept()
 
 
-def _setup(nb=3, qp_iter=3):
+def _setup(nb=3, qp_iter=3, integrator="rk4"):
     spec = WorldSpec(tf=0.6, n_solv=6, n_obst=3, qp_iter=qp_iter)
-    opts = SolverOptions(qp_iter=qp_iter, integrator="rk4")
+    opts = SolverOptions(qp_iter=qp_iter, integrator=integrator)
     ctrl = make_rti_controller(spec, opts, dtype=F64, device="cpu")
     params = default_cost_params(spec, dtype=F64, device="cpu")
     start, goal = robot_start_goal(spec)
@@ -114,6 +116,54 @@ def test_each_tick_is_one_span_with_its_phases_nested_inside(kind):
     kept = profiling.kept("k1.iters")
     assert len(kept) == (2 if kind == "batched" else 0)
     assert len(profiling.kept("tick.done")) == len(profiling.kept("k1.skipped")) == len(kept)
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "irk"])
+def test_rk4_lin_span_lies_inside_linearize_only_in_an_rk4_tick(integrator):
+    spec, ctrl, params, goal, gen, st = _setup(integrator=integrator)
+    tick = make_batched_tick(ctrl, goal, params, backend="fused", generator=gen)
+    st = tick(st)                                   # warm
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tick(tick(st))
+    evs = _program_events(prof)
+    outer = [e for e in evs if e.name == "doa.linearize"]
+    lins = [e for e in evs if e.name == "doa.rk4_lin"]
+    assert len(outer) == 2
+    assert len(lins) == (2 if integrator == "rk4" else 0)
+    assert all(any(_inside(e, p) for p in outer) for e in lins)
+
+
+def test_rk4_tick_gives_the_same_bits_with_a_profiler_as_without():
+    spec, ctrl, params, goal, gen, st = _setup()
+    tick = make_batched_tick(ctrl, goal, params, backend="fused")
+    g = torch.Generator().manual_seed(5)
+    noise = [torch.randn(st.obst.pos.shape, generator=g, dtype=F64) for _ in range(3)]
+
+    def run():
+        s = st
+        for n in noise:
+            s = tick(s, noise=n)
+        return tree_leaves(s)
+
+    plain = run()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = run()
+    assert any(e.name == "doa.rk4_lin" for e in prof.events())
+    assert len(plain) == len(traced) == 12
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+
+
+def test_rk4_yardstick_bound_is_set_by_bytes():
+    """The rk4 linearization's bound is its bytes (188 a row) over the
+    memory rate: the closed-form operation count stays far under the
+    count at which operations would set it."""
+    from mpcbench import rk4_yardstick, yardstick
+
+    rows = 131072 * 20
+    assert rk4_yardstick.BYTES_PER_ROW == 188
+    by_ops = rk4_yardstick.lin_ops(rows) / yardstick.F32_OPS_PER_S
+    by_bytes = rk4_yardstick.lin_bytes(rows) / yardstick.HBM_BYTES_PER_S
+    assert by_ops < by_bytes / 20 and rk4_yardstick.bound_s(rows) == by_bytes
 
 
 def _spread_qps(nb=6):
@@ -213,6 +263,7 @@ _SPANS = [
     ("doa.forecast", 6.0, 6.0),       # 6-12
     ("doa.build_qp", 12.0, 8.0),      # 12-20
     ("doa.linearize", 13.0, 2.0),     # 13-15
+    ("doa.rk4_lin", 13.25, 1.5),      # 13.25-14.75
     ("doa.solve", 20.0, 15.0),        # 20-35
     ("doa.advance", 36.0, 12.0),      # 36-48
     ("doa.integrate", 40.0, 4.0),     # 40-44
@@ -221,9 +272,10 @@ _SPANS = [
 ]
 _RUNTIME = [
     ("cudaStreamSynchronize", 8.0, 3.0),      # 8-11, forecast
-    ("cudaMemcpyAsync", 14.0, 0.5),           # not blocking
+    ("cudaLaunchKernel", 13.5, 0.3),          # enqueues k_a
+    ("cudaMemcpyAsync", 14.0, 0.5),           # not blocking; enqueues ip_solve_kernel
     ("cudaStreamSynchronize", 22.0, 2.0),     # 22-24, inside solve
-    ("cudaMemcpy", 70.0, 4.0),                # 70-74, second tick's glue
+    ("cudaMemcpy", 70.0, 4.0),                # 70-74, second tick's glue; enqueues k_b
     ("cudaEventSynchronize", 49.0, 3.0),      # 49-52: starts in the first tick
     ("cudaDeviceSynchronize", 96.0, 4.0),     # after the last tick
     ("aten::add", 30.0, 2.0),
@@ -235,15 +287,27 @@ _RUNTIME = [
 # idle 10-30 in glue except solve 20-30: 10-20 -> 10; idle 40-60: 40-48
 # advance (8), 48-50 tick (2), 50-55 no span, 55-56 tick (1), 56-60 solve
 # -> 10 + 8 + 2 + 1 = 21 us
+# doa.rk4_lin: the three enqueue calls pair with the three device ops in
+# order; the two starting in 13.25-14.75 enqueue k_a and ip_solve_kernel,
+# 10 + 10 = 20 us of device time; its host time 1.5 us holds no blocking
+# call; its bound over B N = 3 x 4 rows is set by bytes: 12 x 188 B / 3.35 TB/s
+_LIN_BOUND_S = 12 * 188 / 3.35e12
 _EXPECTED = {"host_syncs_per_tick": 2.0, "glue_enqueue_ms_per_tick": 0.026,
              "k1_enqueue_ms_per_tick": 0.0115, "glue_idle_ms_per_tick": 0.0105,
-             "k1_iters_p50": 4.0, "k1_iters_max": 54.5}
+             "k1_iters_p50": 4.0, "k1_iters_max": 54.5,
+             "rk4_lin_launches_per_tick": 1.0, "rk4_lin_enqueue_ms_per_tick": 0.00075,
+             "rk4_lin_ms_per_tick": 0.01, "rk4_lin_roofline": 100.0 * _LIN_BOUND_S / 20e-6}
 NEW = sorted(_EXPECTED)
+RK4_LIN = sorted(n for n in _EXPECTED if n.startswith("rk4_lin"))
 
 
-def _trace(with_spans=True):
-    host = sorted(_RUNTIME + (_SPANS if with_spans else []), key=lambda h: h[1])
-    return Trace(list(_DEVICE), host, 2, 100e-6, None, 3, None)
+def _trace(with_spans=True, spans_left_out=(), runtime=(), device=()):
+    """The hand-built segment; ``spans_left_out`` names spans it lacks, and
+    ``runtime`` and ``device`` are further host calls and device ops."""
+    kept = [h for h in _SPANS if with_spans and h[0] not in spans_left_out]
+    host = sorted(_RUNTIME + list(runtime) + kept, key=lambda h: h[1])
+    ops = sorted(_DEVICE + list(device), key=lambda o: o[1])
+    return Trace(ops, host, 2, 100e-6, {"world": {"n_solv": 4}}, 3, None)
 
 
 def _keep_two_launches():
@@ -266,6 +330,19 @@ def test_reader_gives_none_without_tick_spans(name):
     assert harness.reader(name)(_trace(with_spans=False)) is None
 
 
+@pytest.mark.parametrize("name", RK4_LIN)
+def test_rk4_lin_reader_gives_none_without_its_span_or_a_one_to_one_pairing(name):
+    """An IRK tick has no ``doa.rk4_lin``; an enqueue call the reader does
+    not know (here a device op with no call), or a call whose op the trace
+    lacks, leaves the pairing unknown: each reads None."""
+    read = harness.reader(name)
+    assert read(_trace(spans_left_out=("doa.rk4_lin",))) is None
+    assert read(_trace(device=[("Memset (Device)", 50.0, 1.0)])) is None
+    assert read(_trace(runtime=[("cudaMemsetAsync", 57.0, 0.2)])) is None
+    assert read(_trace(runtime=[("cudaGetDevice", 57.0, 0.2)])) == pytest.approx(
+        _EXPECTED[name], rel=1e-12)
+
+
 def test_skipped_share_reads_the_rows_k1_skipped_over_the_launches_rows():
     """``k1_skipped_pct``: the rows K1 skipped over all rows of the traced
     launches, in percent; None without tick spans, without the count, or
@@ -286,7 +363,8 @@ def test_skipped_share_reads_the_rows_k1_skipped_over_the_launches_rows():
 
 def test_innermost_span_and_interval_arithmetic():
     pieces = spans.innermost(_trace())
-    assert (13.0, 15.0, "doa.linearize") in pieces and (15.0, 20.0, "doa.build_qp") in pieces
+    assert (13.0, 13.25, "doa.linearize") in pieces and (15.0, 20.0, "doa.build_qp") in pieces
+    assert (13.25, 14.75, "doa.rk4_lin") in pieces and (14.75, 15.0, "doa.linearize") in pieces
     assert all(name != "doa.tick" for lo, hi, name in pieces if 20.0 <= lo and hi <= 35.0)
     assert spans.union([(5, 7), (1, 3), (2, 4)]) == [(1, 4), (5, 7)]
     assert spans.overlap([(0, 10)], [(2, 3), (5, 12)]) == 6
